@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
+each against its plain PyTorch version, serves filtered-rank and top-k
+traffic at full width through ``repro_torch.serving.KGEServingTier``, and
+times the kernels.
+
+    python3 chip_smoke.py            # one CUDA card; under a minute on an H100
+
+Phases (every failed check ends the run with a non-zero exit):
+
+1. the card (``nvidia-smi``: name, power limit), then both ``triple_score``
+   kernel libraries built from ``src/repro_torch/kernels/triple_score/csrc``;
+2. kernel vs plain version on the card, for the four score modes through the
+   families that use them (TransE l1 and l2, DistMult dot, ComplEx dot over
+   its 2d-wide table, RotatE cl1), E = 50,000, d = 100, with a ragged B and E
+   and filter widths 1 and 33. Pairwise scores agree within atol 1e-4 /
+   rtol 1e-5; rank counts differ only by near-ties (entities whose plain
+   score lies within 1e-5·(1+|gold|) of gold);
+3. the main path: TransE L1, dim 100 (the trainer's default width) at the
+   paper's largest KG, Dbpedia (E = 491,078, R = 14,085, 1,373,644 known
+   triples drawn uniformly from ``--seed``), served by ``KGEServingTier`` on
+   ``cuda:0``: rank and top-k waves with a table publish between them. The
+   launch counters are zeroed just before the tier is built and read just
+   after the drain; sampled batches are then re-checked against the plain
+   versions on the card;
+4. timings at the serving batch (B = 64): first each kernel's whole output
+   at the timed shapes (every top-k chunk, the ragged last one included) is
+   held against its plain version with the rules of phase 2; then kernel,
+   plain version and the library yardstick (``torch.cdist`` / ``q @ ent.T``, timed only), each the
+   median of CUDA-event-timed runs, beside the least time the card could
+   take (bytes over memory rate, operations over the fp32 rate); then the
+   host-clock time of one 64-row rank and top-k request, and a
+   ``torch.profiler`` trace of the tier draining a burst: device time by
+   kernel and the device's idle share.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
+that lacks the port's sources, it exits non-zero and prints no result.
+``--rehearse`` runs phase 3 at a tiny size on the CPU with the plain
+versions (no kernels, no timings) and also exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+SRC = REPO / "src"
+
+#: Dbpedia's size in the paper's Table 2 (``kge/data.py::PAPER_KG_STATS``)
+DBPEDIA = dict(entities=491_078, relations=14_085, triples=1_373_644)
+DIM = 100            # ``kge/trainer.py``'s default embedding width
+SERVE_BATCH = 64     # the tier's ``max_batch``: the fullest batch it launches
+RANK_REQUESTS = 300  # rank requests over the two waves of phase 3
+TOPK_REQUESTS = 40   # top-k requests over the two waves of phase 3
+CHECK_EVERY = 10     # re-check every n-th served request against the plain versions
+ITERS = 20           # timed runs per measurement
+
+#: (family, norm_ord) for each score mode of phase 2
+MODE_FAMILIES = {"l1": ("transe", 1), "l2": ("transe", 2), "dot": ("distmult", 1),
+                 "dot2d": ("complex", 1), "cl1": ("rotate", 1)}
+#: TPU kernels these replace (the ``pl.pallas_call`` of each)
+REPLACES = {
+    "pairwise_scores": "src/repro/kernels/triple_score/triple_score.py:83",
+    "fused_ranks": "src/repro/kernels/triple_score/triple_score.py:157",
+}
+SOURCES = {
+    "pairwise_scores": "src/repro_torch/kernels/triple_score/csrc/pairwise_scores.cu",
+    "fused_ranks": "src/repro_torch/kernels/triple_score/csrc/fused_ranks.cu",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+# ------------------------------------------------------------------ the card
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def peak_rates(name: str):
+    """(bytes/s, fp32 FLOP/s outside the tensor cores) from NVIDIA's data
+    sheets, for the card ``name`` (H100 SXM unless it says PCIe / H200)."""
+    if "PCIe" in name or "PCIE" in name:
+        return 2.0e12, 51.2e12
+    if "H200" in name:
+        return 4.8e12, 67e12
+    return 3.35e12, 67e12
+
+
+# --------------------------------------------------------------- near ties
+def near_tie_count(plain_scores, gold):
+    """Entities whose plain score lies within 1e-5·(1+|gold|) of gold."""
+    g = gold[:, None]
+    return ((plain_scores - g).abs() <= 1e-5 * (1 + g.abs())).sum(1)
+
+
+def check_ranks(torch, counts, plain_counts, plain_scores, gold, what):
+    diff = (counts.long() - plain_counts.long()).abs()
+    near = near_tie_count(plain_scores, gold)
+    check(bool((diff <= near).all()), f"{what}: rank counts differ beyond near-ties "
+          f"(max diff {int(diff.max())})")
+    return int((diff > 0).sum()), int(diff.max()) if diff.numel() else 0
+
+
+# ------------------------------------------------------------ phase 2
+def kernel_vs_plain(torch, ops, models, dev, seed, e_full):
+    """Each kernel against its plain version on the card, every mode."""
+    worst = {"pairwise_scores": 0.0, "fused_ranks": 0}
+    cases = [(64, e_full, 1), (61, e_full - 37, 33)]
+    for label, (family, norm_ord) in MODE_FAMILIES.items():
+        for b, e, f in cases:
+            m = models.KGEModel(family, e, 64, DIM, norm_ord=norm_ord)
+            params = models.init_kge(seed, m, device=dev)
+            g = torch.Generator(device=dev).manual_seed(seed + b)
+            h = torch.randint(0, e, (b,), device=dev, generator=g)
+            r = torch.randint(0, 64, (b,), device=dev, generator=g)
+            t = torch.randint(0, e, (b,), device=dev, generator=g)
+            q, table, mode = models.lp_query_tails(params, m, h, r)
+            q = q.contiguous()
+            table = table.contiguous()
+            gold = models.lp_gold_scores(q, table, t, mode)
+            filt = torch.randint(-1, e, (b, f), device=dev, generator=g, dtype=torch.int32)
+            filt[:, 0] = t.int()
+            s = ops.pairwise_scores(q, table, mode=mode)
+            p = ops.pairwise_scores_plain(q, table, mode, block_e=4096)
+            torch.cuda.synchronize()
+            err = float((s - p).abs().max())
+            torch.testing.assert_close(s, p, atol=1e-4, rtol=1e-5)
+            c = ops.fused_ranks(q, table, gold, filt, mode=mode)
+            cp = ops.fused_ranks_plain(q, table, gold, filt, mode, block_e=4096)
+            torch.cuda.synchronize()
+            ndiff, dmax = check_ranks(torch, c, cp, p, gold, f"{label} B={b} E={e} F={f}")
+            worst["pairwise_scores"] = max(worst["pairwise_scores"], err)
+            worst["fused_ranks"] = max(worst["fused_ranks"], dmax)
+            log(f"check {label:5s} ({family}, mode {mode}, width {table.shape[1]}) "
+                f"B={b} E={e} F={f}: pairwise max|err|={err:.3g} ok; "
+                f"rank counts differ on {ndiff}/{b} queries, all within near-ties")
+    return worst
+
+
+# ------------------------------------------------------------ phase 3
+def draw_known(np, seed, e, r, n):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, e, n), rng.integers(0, r, n), rng.integers(0, e, n)],
+                    axis=1).astype(np.int64)
+
+
+def serve(torch, np, models, serving, ops, dev, args, sizes):
+    """The main path: a tier over Dbpedia-sized TransE tables answers rank
+    and top-k waves with a publish between them."""
+    e, r, n_known = sizes
+    m = models.KGEModel("transe", e, r, DIM, norm_ord=1)
+    t0 = time.perf_counter()
+    known = draw_known(np, args.seed, e, r, n_known)
+    v0 = models.init_kge(args.seed, m, device=dev)
+    v1 = models.init_kge(args.seed + 1, m, device=dev)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(args.seed + 7)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tier = serving.KGEServingTier(v0, m, known, device=dev, max_batch=SERVE_BATCH,
+                                  warm_buckets=[("rank", SERVE_BATCH),
+                                                ("topk", SERVE_BATCH, 20)])
+    build_s = time.perf_counter() - t0
+    log(f"serve: E={e} R={r} known={n_known} d={DIM} transe/l1 on {dev}; "
+        f"tables drawn in {setup_s:.2f}s, tier built in {build_s:.2f}s "
+        f"(filter width {tier.filters.width}, rank filter width {tier.filters.width + 1})")
+
+    waves = []
+    t_serve = time.perf_counter()
+    for wave in range(2):
+        reqs = []
+        n_rank, n_topk = RANK_REQUESTS // 2, TOPK_REQUESTS // 2
+        kinds = ["rank"] * n_rank + ["topk"] * n_topk
+        rng.shuffle(kinds)
+        for kind in kinds:
+            n = int(rng.integers(1, 17))
+            if rng.random() < 0.5:
+                q = known[rng.integers(0, len(known), n)]
+            else:
+                q = draw_known(np, int(rng.integers(1 << 30)), e, r, n)
+            if kind == "rank":
+                reqs.append((kind, q, tier.submit_rank(q[:, 0], q[:, 1], q[:, 2])))
+            else:
+                k = int(rng.choice([1, 10, 20]))
+                reqs.append((kind, q, tier.submit_topk(q[:, 0], q[:, 1], k=k)))
+        tier.run_until_drained()
+        waves.append(reqs)
+        if wave == 0:
+            tier.publish(v1)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    serve_s = time.perf_counter() - t_serve
+    launches = dict(ops.LAUNCHES)
+
+    s = tier.stats
+    check(s["served"] == s["submitted"] and s["failed"] == 0 and s["shed"] == 0,
+          f"served != submitted: {s}")
+    for wave, reqs in enumerate(waves):
+        check(all(req.version == wave for _, _, req in reqs),
+              f"wave {wave} served on the wrong table version")
+    lat = sorted(req.latency for reqs in waves for _, _, req in reqs)
+    rows = sum(len(q) for reqs in waves for _, q, _ in reqs)
+    nreq = sum(len(reqs) for reqs in waves)
+    res = {
+        "requests": nreq, "rows": rows, "batches": s["batches"], "seconds": serve_s,
+        "qps_requests": nreq / serve_s, "qps_rows": rows / serve_s,
+        "p50_ms": 1e3 * lat[len(lat) // 2], "p99_ms": 1e3 * lat[min(len(lat) - 1,
+                                                                   int(0.99 * len(lat)))],
+        "stats": dict(s), "launches": launches, "rank_filter_width": tier.filters.width + 1,
+    }
+    log(f"serve: {nreq} requests ({rows} query rows) in {s['batches']} batches over two "
+        f"versions in {serve_s:.3f}s: {res['qps_requests']:.1f} req/s, "
+        f"{res['qps_rows']:.1f} rows/s, p50 {res['p50_ms']:.2f} ms, p99 {res['p99_ms']:.2f} ms")
+    log(f"serve: launches during the main path {launches}; stats {s}")
+    return tier, m, (v0, v1), waves, res
+
+
+def recheck_served(torch, np, models, ops, tier, m, versions, waves, dev):
+    """Sampled served requests against the plain versions on the same card."""
+    n_rank = n_topk = n_diff = 0
+    err = 0.0
+    for wave, reqs in enumerate(waves):
+        params = versions[wave]
+        for i, (kind, q, req) in enumerate(reqs):
+            if i % CHECK_EVERY:
+                continue
+            h = torch.as_tensor(q[:, 0], device=dev)
+            r = torch.as_tensor(q[:, 1], device=dev)
+            qv, table, mode = models.lp_query_tails(params, m, h, r)
+            plain = ops.pairwise_scores_plain(qv, table, mode, block_e=16384)
+            if kind == "rank":
+                t = torch.as_tensor(q[:, 2], device=dev)
+                gold = models.lp_gold_scores(qv, table, t, mode)
+                filt = torch.as_tensor(tier.filters.rows_for(q[:, 0], q[:, 1]), device=dev)
+                filt = torch.cat([t.int()[:, None], filt], 1)
+                cp = ops.fused_ranks_plain(qv, table, gold, filt, mode, block_e=16384)
+                got = torch.as_tensor(req.result - 1, device=dev)
+                nd, _ = check_ranks(torch, got, cp, plain, gold, f"served rank request {i}")
+                n_diff += nd
+                n_rank += 1
+            else:
+                k = req.k
+                filt = torch.as_tensor(tier.filters.rows_for(q[:, 0], q[:, 1]), device=dev)
+                masked = plain.masked_fill(ops.exclusion_mask(filt, 0, plain.shape[1]),
+                                           float("-inf"))
+                vals, order = torch.sort(masked, dim=1, descending=True, stable=True)
+                pv, pi = vals[:, :k].cpu().numpy(), order[:, :k].cpu().numpy()
+                ids, sv = req.result
+                err = max(err, float(np.abs(sv - pv).max()))
+                check(np.allclose(sv, pv, rtol=0, atol=1e-4), f"top-k request {i}: scores")
+                differ = ids != pi
+                if differ.any():
+                    got_plain = masked.gather(1, torch.as_tensor(
+                        np.where(ids < 0, 0, ids), device=dev).long()).cpu().numpy()
+                    check(bool(np.all(np.abs(got_plain[differ] - pv[differ])
+                                      <= 1e-5 * (1 + np.abs(pv[differ])))),
+                          f"top-k request {i}: ids differ beyond near-ties")
+                    n_diff += int(differ.any(1).sum())
+                n_topk += 1
+    log(f"recheck: {n_rank} rank and {n_topk} top-k requests against the plain versions: "
+        f"ok ({n_diff} rows differ only at near-ties; top-k max|err| {err:.3g})")
+    return err
+
+
+# ------------------------------------------------------------ phase 4
+def time_ms(torch, fn, iters, warmup=3):
+    """Median milliseconds of ``fn`` over ``iters`` runs, each between two
+    CUDA events on the current stream."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
+    """Kernel, plain and library times at the serving batch, with bounds."""
+    mem_rate, fp32_rate = peak_rates(card)
+    e, d = params["ent"].shape
+    b = SERVE_BATCH
+    g = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randint(0, e, (b,), device=dev, generator=g)
+    r = torch.randint(0, m.num_relations, (b,), device=dev, generator=g)
+    t = torch.randint(0, e, (b,), device=dev, generator=g)
+    q, table, mode = models.lp_query_tails(params, m, h, r)
+    q = q.contiguous()
+    gold = models.lp_gold_scores(q, table, t, mode)
+    filt = torch.as_tensor(known_filters.rows_for(h.cpu().numpy(), r.cpu().numpy()), device=dev)
+    filt = torch.cat([t.int()[:, None], filt], 1).contiguous()
+    f = filt.shape[1]
+    chunk = engine.CUDA_TOPK_CHUNK
+    chunks = [(c0, min(c0 + chunk, e)) for c0 in range(0, e, chunk)]
+    out = {}
+
+    def pairwise():
+        return [ops.pairwise_scores(q, table[c0:c1], mode=mode) for c0, c1 in chunks]
+
+    def pairwise_plain():
+        return [ops.pairwise_scores_plain(q, table[c0:c1], mode, block_e=16384)
+                for c0, c1 in chunks]
+
+    def fused():
+        return ops.fused_ranks(q, table, gold, filt, mode=mode)
+
+    def fused_plain():
+        return ops.fused_ranks_plain(q, table, gold, filt, mode, block_e=16384)
+
+    # the outputs at exactly the shapes timed below, each chunk of the top-k
+    # path's batch (the ragged last one too) held whole against the plain version
+    kernel_chunks, plain_chunks = pairwise(), pairwise_plain()
+    pair_err = 0.0
+    for (c0, c1), got, want in zip(chunks, kernel_chunks, plain_chunks):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5,
+                                   msg=lambda m: f"pairwise chunk [{c0}, {c1}): {m}")
+        pair_err = max(pair_err, float((got - want).abs().max()))
+    plain_scores = torch.cat(plain_chunks, 1)
+    del kernel_chunks, plain_chunks
+    ndiff, rank_err = check_ranks(torch, fused(), fused_plain(), plain_scores, gold,
+                                  f"fused ranks B={b} E={e} F={f}")
+    del plain_scores
+    log(f"check at the timed shapes: pairwise over {len(chunks)} chunks (last "
+        f"{chunks[-1][1] - chunks[-1][0]} rows) max|err|={pair_err:.3g} ok; rank counts "
+        f"differ on {ndiff}/{b} queries, all within near-ties")
+
+    # fused ranks: one launch over the whole table per batch
+    nbytes = 4 * (b * d + e * d + b + b * f + b)
+    flops = 2 * b * e * d
+    bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
+    out["fused_ranks"] = dict(
+        ms=time_ms(torch, fused, ITERS), plain_ms=time_ms(torch, fused_plain, max(3, ITERS // 4)),
+        library_ms=None, bound_ms=bound_ms,
+        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        shape=f"B={b} E={e} d={d} F={f} mode={mode}", launches_per_batch=1,
+        bytes=nbytes, flops=flops, max_abs_err=rank_err,
+    )
+
+    # pairwise scores: the top-k path's launches over one batch, chunk by chunk
+    p = 1 if mode == "l1" else 2
+
+    def library():
+        for c0, c1 in chunks:
+            if mode == "dot":
+                q @ table[c0:c1].T
+            else:
+                torch.cdist(q, table[c0:c1], p=p)
+
+    nbytes = 4 * (b * d + e * d + b * e)
+    bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
+    out["pairwise_scores"] = dict(
+        ms=time_ms(torch, pairwise, ITERS),
+        plain_ms=time_ms(torch, pairwise_plain, max(3, ITERS // 4)),
+        library_ms=time_ms(torch, library, ITERS), bound_ms=bound_ms,
+        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        shape=f"B={b} E={e} d={d} mode={mode}, {len(chunks)} launches of <= {chunk} rows",
+        launches_per_batch=len(chunks), bytes=nbytes, flops=flops, max_abs_err=pair_err,
+    )
+    for name in ("fused_ranks", "pairwise_scores"):
+        x = out[name]
+        lib = "n/a" if x["library_ms"] is None else f"{x['library_ms']:.4f}"
+        log(f"time {name} [{x['shape']}]: kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
+            f"library {lib} ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
+            f"{100 * x['bound_ms'] / x['ms']:.1f}% of bound; {card}")
+    return out
+
+
+def request_times(torch, np, serving, m, params, filters, card):
+    """Host-clock time of one 64-row rank request and one 64-row top-k
+    request through a ``KGECandidateRanker`` (query build, launches, merges
+    and the copy of the answer to the host): the median of ``ITERS``."""
+    ranker = serving.KGECandidateRanker(params, m, filters=filters)
+    q = draw_known(np, 11, m.num_entities, m.num_relations, SERVE_BATCH)
+    out = {}
+    for name, fn in (("rank_ms", lambda: ranker.rank_tails(q[:, 0], q[:, 1], q[:, 2])),
+                     ("topk_k20_ms", lambda: ranker.topk_tails(q[:, 0], q[:, 1], k=20))):
+        fn()
+        times = []
+        for _ in range(ITERS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[name] = statistics.median(times)
+    log(f"time requests (B={SERVE_BATCH}, ranker, host clock): rank {out['rank_ms']:.3f} ms, "
+        f"top-k k=20 {out['topk_k20_ms']:.3f} ms; {card}")
+    return out
+
+
+def profile_serving(torch, np, tier, m, seed, card):
+    """Device time by kernel and the device's idle share while the tier
+    drains a mixed burst (torch.profiler, CUDA activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(seed + 99)
+    for i in range(48):
+        q = draw_known(np, int(rng.integers(1 << 30)), m.num_entities, m.num_relations,
+                       int(rng.integers(1, 17)))
+        if i % 6:
+            tier.submit_rank(q[:, 0], q[:, 1], q[:, 2])
+        else:
+            tier.submit_topk(q[:, 0], q[:, 1], k=10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tier.run_until_drained()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": None if busy == 0 else 1 - busy / wall_us,
+           "top": [(name[:90], us / 1e3) for name, us in top]}
+    if busy == 0:
+        log("profile: the profiler saw no device activity; idle share not measured")
+    else:
+        log(f"profile: burst of 48 requests drained in {res['wall_ms']:.2f} ms, device busy "
+            f"{res['device_busy_ms']:.2f} ms, idle share {res['idle_share']:.3f}; {card}")
+        for name, ms in res["top"]:
+            log(f"profile:   {ms:9.3f} ms  {100 * ms * 1e3 / busy:5.1f}%  {name}")
+    return res
+
+
+# ------------------------------------------------------------------- main
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=str(REPO / "build" / "chip_smoke.json"),
+                    help="where to write the full results as JSON")
+    ap.add_argument("--rehearse", action="store_true",
+                    help="run the serving phase at a tiny size on the CPU (plain versions "
+                         "only) and exit non-zero: a check of the script, not of the card")
+    args = ap.parse_args(argv)
+
+    if not (SRC / "repro_torch" / "kernels" / "triple_score" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not beside this script ({SRC})",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+    import torch
+
+    if not args.rehearse and not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this smoke needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.triple_score import ops
+    from repro_torch.kge import models
+    from repro_torch import serving
+    from repro_torch.serving import engine
+
+    if args.rehearse:
+        dev = torch.device("cpu")
+        tier, m, versions, waves, res = serve(torch, np, models, serving, ops, dev, args,
+                                              (4_000, 50, 12_000))
+        recheck_served(torch, np, models, ops, tier, m, versions, waves, dev)
+        print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
+        return 3
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    build_logs = ops.build_kernels()
+    build_s = time.perf_counter() - t0
+    log(f"build: both kernel libraries in {build_s:.2f}s")
+    for lib in ops.LIBRARIES:
+        regs = [ln.strip() for ln in build_logs[lib.name].splitlines() if "registers" in ln]
+        log(f"build {lib.name}: " + (" | ".join(regs) if regs else f"already built ({lib.path})"))
+
+    worst = kernel_vs_plain(torch, ops, models, dev, args.seed, 50_000)
+    tier, m, versions, waves, res = serve(
+        torch, np, models, serving, ops, dev, args,
+        (DBPEDIA["entities"], DBPEDIA["relations"], DBPEDIA["triples"]))
+    for name in ("pairwise_scores", "fused_ranks"):
+        check(res["launches"][name] > 0, f"the main path never launched {name}")
+    topk_err = recheck_served(torch, np, models, ops, tier, m, versions, waves, dev)
+    times = timings(torch, models, ops, engine, m, versions[1], tier.filters, dev, card)
+    times["requests"] = request_times(torch, np, serving, m, versions[1], tier.filters, card)
+    times["profile"] = profile_serving(torch, np, tier, m, args.seed, card)
+
+    kernels = []
+    for name in ("pairwise_scores", "fused_ranks"):
+        x = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": res["launches"][name],
+            "max_abs_err": max(worst[name], x["max_abs_err"],
+                               topk_err if name == "pairwise_scores" else 0),
+            "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+            "bound_by": x["bound_by"], "library_ms": x["library_ms"],
+        })
+    result = {"card": card, "build_s": build_s, "check_max_abs_err": worst, "serve": res,
+              "timings": times, "kernels": kernels,
+              "seconds": time.perf_counter() - t_start}
+    try:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1, default=str))
+    except OSError as ex:
+        log(f"could not write {args.out}: {ex}")
+    log(f"total {result['seconds']:.1f}s")
+    log(card)  # the card's name and power limit, as nvidia-smi gives them
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as ex:
+        print(f"chip_smoke: FAILED: {ex}", file=sys.stderr)
+        sys.exit(1)

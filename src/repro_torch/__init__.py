@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of the FKGE system.
+
+The package mirrors the JAX package's layout (``kge/``, ``core/``,
+``serving/``, ``kernels/``) so each module's counterpart is easy to find.
+Plain tensor code is PyTorch; every kernel that the JAX package wrote in
+Pallas for the TPU is a CUDA C++ kernel for Hopper (``sm_90a``), built from
+the sources under ``kernels/*/csrc`` at first use on a CUDA tensor.
+
+Entry points run on the GPU unless the caller passes ``device="cpu"``; with
+no CUDA device and no explicit CPU request they raise
+(``kernels.dispatch.resolve_device``). On CPU tensors every kernel wrapper
+takes its plain PyTorch version, which is what the CPU tests exercise.
+
+Serving is ported first: ``serving.KGEServingTier`` answers filtered-rank
+and top-k queries through the two ``triple_score`` kernels.
+"""

@@ -1,0 +1,97 @@
+"""Device resolution and serving knobs.
+
+There is no interpret flag and no rank-implementation knob: a kernel
+wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
+PyTorch version for a CPU tensor, so the tensor's device decides.
+
+``resolve_device`` is the one place an entry point turns ``device=None``
+into a device: the current CUDA device when there is one, else an error —
+a run never carries on quietly on the CPU. The serving knobs keep the JAX
+package's environment variables (``REPRO_SERVE_IMPL``,
+``REPRO_SERVE_REPLICAS``, ``REPRO_SERVE_FAULTS``).
+"""
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import torch
+
+_FALSY = ("0", "false", "no", "off")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the current CUDA
+    device. Raises when CUDA is asked for (explicitly or by default) and
+    there is none. CUDA devices always come back with their index, so two
+    resolved devices compare equal exactly when they are the same card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def cuda_devices() -> List[torch.device]:
+    """Every visible CUDA device, indexed; raises when there is none."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError(
+            "no CUDA device available; pass devices=[torch.device('cpu')] "
+            "to serve from the CPU"
+        )
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def resolve_serve_faults(spec=None):
+    """The serving-tier fault-injection layer: ``None`` (off, the default)
+    or a plan description the tier hands to ``ServeFaultPlan.parse``. An
+    already-built plan passes through; ``None`` consults
+    ``REPRO_SERVE_FAULTS``; off-values resolve to ``None``."""
+    if spec is not None and not isinstance(spec, str):
+        return spec
+    if spec is None:
+        spec = os.environ.get("REPRO_SERVE_FAULTS", "").strip() or None
+    if spec is None:
+        return None
+    if spec.strip().lower() in _FALSY + ("", "none"):
+        return None
+    return spec
+
+
+def resolve_serve_impl(impl: Optional[str] = None) -> str:
+    """``batched`` (the default: continuous batching into pow-2 padded
+    query batches) or ``direct`` (one dispatch per request, the per-call
+    baseline). ``REPRO_SERVE_IMPL`` overrides."""
+    if impl is None:
+        impl = os.environ.get("REPRO_SERVE_IMPL", "").strip().lower() or None
+    if impl is None:
+        impl = "batched"
+    if impl not in ("batched", "direct"):
+        raise ValueError(f"unknown serve impl {impl!r} (batched|direct)")
+    return impl
+
+
+def resolve_serve_replicas(n: Optional[int] = None) -> int:
+    """How many table replicas the serving tier spreads over the cards.
+    Explicit ``n`` wins, else ``REPRO_SERVE_REPLICAS``, else every visible
+    CUDA device capped at 4 (at least 1). The tier clamps to the devices it
+    was given, so over-asking is safe."""
+    if n is None:
+        raw = os.environ.get("REPRO_SERVE_REPLICAS", "").strip()
+        n = int(raw) if raw else None
+    if n is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = max(1, min(4, count))
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"serve replicas must be >= 1, got {n}")
+    return n

@@ -1,0 +1,8 @@
+from repro_torch.kge.data import KG, PAPER_KG_STATS, synthesize_universe  # noqa: F401
+from repro_torch.kge.models import (  # noqa: F401
+    MODEL_FAMILIES,
+    KGEModel,
+    init_kge,
+    params_from_numpy,
+    score_triples,
+)

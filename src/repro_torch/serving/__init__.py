@@ -1,0 +1,10 @@
+from repro_torch.serving.engine import KGECandidateRanker  # noqa: F401
+from repro_torch.serving.tables import (  # noqa: F401
+    FilterPack,
+    TableVersion,
+)
+from repro_torch.serving.tier import (  # noqa: F401
+    KGEServingTier,
+    QueryRequest,
+    TierOverloadError,
+)

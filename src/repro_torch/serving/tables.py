@@ -1,0 +1,134 @@
+"""Versioned serving tables: what a KGE serving process holds.
+
+``FilterPack`` — the padded CSR known-true filter over (h, r) keys, built
+once from the owner's known triples. The pad width is a power of two over
+the longest row, plus a trailing all(−1) sentinel row for unknown keys.
+Known triples outlive table versions: one pack serves every version.
+
+``TableVersion`` — one immutable published snapshot of an owner's tables:
+the params dict, a per-version non-finite-row bitmask (one ``isfinite``
+reduction per table on the tables' device; request validation is then an
+O(B) host lookup), and a per-device copy cache. Staging onto the device
+the params already sit on is zero-copy; every other device costs one
+counted transfer.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.distributed import committed_device
+from repro_torch.kge.eval import _filter_mask, pack_padded_filters
+
+
+def _pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+class FilterPack:
+    """Padded CSR filter rows for tail queries, one row per known (h, r) key
+    plus a trailing all(−1) sentinel row for unknown keys."""
+
+    def __init__(self, known_triples, num_entities: int):
+        known = (
+            np.zeros((0, 3), np.int64) if known_triples is None
+            else np.asarray(known_triples)
+        )
+        self.num_entities = int(num_entities)
+        self.hr_t, self.rt_h = _filter_mask(known, num_entities)
+        rows: List[List[int]] = [sorted(v) for v in self.hr_t.values()]
+        self._row_of: Dict[Tuple[int, int], int] = {
+            k: i for i, k in enumerate(self.hr_t)
+        }
+        maxw = max((len(x) for x in rows), default=1)
+        self.width = _pow2(maxw)
+        self.rows = pack_padded_filters(rows + [[]], width=self.width)
+
+    def row_index(self, h: np.ndarray, r: np.ndarray) -> np.ndarray:
+        sentinel = len(self.rows) - 1
+        get = self._row_of.get
+        return np.fromiter(
+            (get((int(hh), int(rr)), sentinel) for hh, rr in zip(h, r)),
+            np.int64, count=len(h),
+        )
+
+    def rows_for(self, h: np.ndarray, r: np.ndarray) -> np.ndarray:
+        """(B, width) int32 known-tail filter rows for (h, r) queries."""
+        return self.rows[self.row_index(h, r)]
+
+
+def check_id_range(name: str, ids, limit: int) -> np.ndarray:
+    """Serving boundary: ids arrive from untrusted callers, and an
+    out-of-range id would otherwise gather the wrong row (negative ids
+    wrap) or fault inside a kernel."""
+    ids = np.asarray(ids, np.int64).reshape(-1)
+    bad = ids[(ids < 0) | (ids >= limit)]
+    if bad.size:
+        raise ValueError(
+            f"{name} ids must be in [0, {limit}); got "
+            f"{bad[:5].tolist()}{'…' if bad.size > 5 else ''}"
+        )
+    return ids
+
+
+def _bad_row_mask(params, keys, n: int) -> np.ndarray:
+    """(n,) bool: rows with any NaN/Inf in any of the named tables. The
+    reduction runs where the tables sit; only the boolean vector comes to
+    the host. Rows past ``n`` (virtual-entity extensions) are ignored."""
+    bad = np.zeros(n, np.bool_)
+    for k in keys:
+        tab = params.get(k)
+        if tab is None:
+            continue
+        m = (~torch.isfinite(tab).all(dim=-1)).cpu().numpy()
+        bad[: m.shape[0]] |= m[:n]
+    return bad
+
+
+class TableVersion:
+    """One immutable published (owner, version) snapshot of serving tables."""
+
+    def __init__(self, params, model, filters: FilterPack, *,
+                 version: int = 0, owner: Optional[str] = None):
+        self.params = dict(params)
+        self.model = model
+        self.filters = filters
+        self.version = int(version)
+        self.owner = owner
+        self.ent_bad = _bad_row_mask(self.params, ("ent", "ent_im"),
+                                     model.num_entities)
+        self.rel_bad = _bad_row_mask(self.params, ("rel", "rel_im"),
+                                     model.num_relations)
+        #: per-device copies, filled by ``on()``
+        self._ondev: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        #: copies made to other devices — 0 for the device the params sit on
+        self.transfers = 0
+
+    def on(self, device) -> Dict[str, torch.Tensor]:
+        """The tables on ``device``: the params dict itself where they
+        already sit (zero-copy), else one copy made on first use and reused
+        afterwards."""
+        device = torch.device(device)
+        got = self._ondev.get(device)
+        if got is None:
+            if committed_device(self.params) == device:
+                got = self.params
+            else:
+                got = {k: v.to(device, non_blocking=True) for k, v in self.params.items()}
+                self.transfers += 1
+            self._ondev[device] = got
+        return got
+
+    def check_finite(self, name: str, bad_mask: np.ndarray,
+                     ids: np.ndarray) -> None:
+        """O(B) bitmask lookup: refuse ids whose rows are NaN/Inf in this
+        version, naming them."""
+        bad = ids[bad_mask[ids]]
+        if bad.size:
+            raise ValueError(
+                f"non-finite query embedding: {name} ids "
+                f"{bad[:5].tolist()}{'…' if bad.size > 5 else ''} "
+                f"have NaN/Inf rows in this table version"
+            )

@@ -1,0 +1,44 @@
+"""Shared helpers for the parity tests of the PyTorch port against the JAX
+package: seeded inputs made with numpy, dyadic tables on which fp32 sums
+are exact in any order, and the near-tie rule for rank counts."""
+import jax
+import numpy as np
+
+from repro.kge.models import KGEModel as JaxKGEModel
+from repro.kge.models import init_kge as jax_init_kge
+
+
+def dyadic(rng: np.random.Generator, shape) -> np.ndarray:
+    """Entries k/64 with |k| <= 64: with d <= 32 (d <= 16 for ComplEx's
+    2d-wide table) every product and sum the scores take is exact in fp32,
+    so the two frameworks agree bit for bit whatever their summation order."""
+    return (rng.integers(-64, 65, shape) / 64.0).astype(np.float32)
+
+
+def jax_params(family: str, e: int, r: int, d: int, *, seed: int = 0,
+               norm_ord: int = 1, dyadic_tables: bool = True):
+    """(model, numpy params) from the JAX package's ``init_kge``; with
+    ``dyadic_tables`` every table except RotatE's phases is rounded to the
+    dyadic grid."""
+    m = JaxKGEModel(family, e, r, d, norm_ord=norm_ord)
+    p = {k: np.asarray(v) for k, v in jax_init_kge(jax.random.PRNGKey(seed), m).items()}
+    if dyadic_tables:
+        for k, v in p.items():
+            if family == "rotate" and k == "rel":
+                continue
+            p[k] = np.clip(np.round(v * 64.0) / 64.0, -1.0, 1.0).astype(np.float32)
+    return m, p
+
+
+def near_tie_ok(a: np.ndarray, b: np.ndarray, scores: np.ndarray,
+                gold: np.ndarray) -> bool:
+    """Rank counts may differ per query by at most the number of entities
+    whose score lies within 1e-5·(1+|gold|) of gold."""
+    near = (np.abs(scores - gold[:, None]) <= 1e-5 * (1 + np.abs(gold[:, None]))).sum(1)
+    return bool((np.abs(a.astype(np.int64) - b.astype(np.int64)) <= near).all())
+
+
+def triples(rng: np.random.Generator, n: int, e: int, r: int) -> np.ndarray:
+    return np.stack(
+        [rng.integers(0, e, n), rng.integers(0, r, n), rng.integers(0, e, n)], axis=1
+    ).astype(np.int64)

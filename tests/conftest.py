@@ -16,3 +16,9 @@ except ModuleNotFoundError:
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the card with -m cuda"
+    )

@@ -1,0 +1,91 @@
+"""Guards on the PyTorch port's boundary: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or the JAX package, importing the port needs
+no CUDA toolkit, and an entry point called without ``device=`` on a machine
+without CUDA raises instead of carrying on on the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.lineno, node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value).split(".")[0]
+
+
+def test_port_files_exist():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for want in ("chip_smoke.py", "src/repro_torch/serving/tier.py",
+                 "src/repro_torch/kernels/triple_score/ops.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
+def test_no_jax_or_reference_imports(path):
+    bad = [(ln, mod) for ln, mod in _imported_roots(path) if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+
+
+def test_entry_points_without_device_raise_without_cuda(no_cuda):
+    from repro_torch.core.distributed import replica_devices
+    from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.kge.models import KGEModel, init_kge, params_from_numpy
+    from repro_torch.serving import KGEServingTier
+
+    m = KGEModel("transe", 10, 2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_kge(0, m)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"ent": np.zeros((10, 4))})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        replica_devices(0, 1)
+    params = init_kge(0, m, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KGEServingTier(params, m)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_is_lazy():
+    """Importing the whole port (in a fresh interpreter) starts no compiler
+    and loads no kernel library."""
+    code = (
+        "import sys; import repro_torch.serving, repro_torch.kge.eval\n"
+        "from repro_torch.kernels.triple_score import ops\n"
+        "assert all(lib._lib is None for lib in ops.LIBRARIES)\n"
+        "assert 'jax' not in sys.modules\n"
+        "print(ops.PAIRWISE_LIB.path.name, ops.FUSED_RANKS_LIB.path.name)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    pair, fused = out.stdout.split()
+    assert pair.startswith("libtriple_score_pairwise-") and pair.endswith(".so")
+    assert fused.startswith("libtriple_score_fused_ranks-")
