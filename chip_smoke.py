@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels, holds
 each against its plain PyTorch version, serves filtered-rank and top-k
-traffic at full width through ``repro_torch.serving.KGEServingTier``, and
-times the kernels.
+traffic at full width through ``repro_torch.serving.KGEServingTier``, trains
+one full-width epoch through ``repro_torch.kge.trainer.KGETrainer`` and
+scores it, and times the kernels.
 
-    python3 chip_smoke.py            # one CUDA card; under a minute on an H100
+    python3 chip_smoke.py            # one CUDA card; a minute or two on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
-1. the card (``nvidia-smi``: name, power limit), then both ``triple_score``
-   kernel libraries built from ``src/repro_torch/kernels/triple_score/csrc``;
+1. the card (``nvidia-smi``: name, power limit), then the three kernel
+   libraries (``triple_score``: pairwise scores and fused ranks;
+   ``sparse_update``: the SGD step) built from the ``csrc`` directories under
+   ``src/repro_torch/kernels``, one ``nvcc`` each, all started together;
 2. kernel vs plain version on the card, for the four score modes through the
    families that use them (TransE l1 and l2, DistMult dot, ComplEx dot over
    its 2d-wide table, RotatE cl1), E = 50,000, d = 100, with a ragged B and E
@@ -31,12 +34,31 @@ Phases (every failed check ends the run with a non-zero exit):
    take (bytes over memory rate, operations over the fp32 rate); then the
    host-clock time of one 64-row rank and top-k request, and a
    ``torch.profiler`` trace of the tier draining a burst: device time by
-   kernel and the device's idle share.
+   kernel and the device's idle share;
+5. the sparse SGD step kernel against its plain version on the card, for
+   l1, l2 and dot, at the training shape (E = 491,078, R = 14,085, d = 100,
+   B = 100) and a ragged one (B = 37, d = 33), on batches built to break a
+   wrong step (a hub row, ids 0 and E−1, rows shared by pos and neg): whole
+   tables after one step (atol 1e-6, loss rtol 1e-6) and after 64 steps
+   (atol 1e-5, losses rtol 1e-5), and two kernel runs of the 64 steps
+   bit-equal;
+6. the training path: TransE L1, d = 100, lr 0.5, batch 100, margin 4, on
+   the Dbpedia-sized store of phase 3 as the training split (valid and test
+   are 2,000 triples each sampled from it). ``KGETrainer`` on ``cuda:0``
+   trains one epoch (13,737 batches cycle-padded to 16,384); the step
+   counter is zeroed just before and must read 16,384 after, the epoch
+   loss must be finite and the padding rows zero. Filtered link prediction
+   (``max_test`` 2,000, one chunk held against the plain rank count) and
+   triple classification run before and after. The trained tables are
+   published to the tier, trained one more step in place, and the published
+   version must still answer as before;
+7. timings of the step (kernel, plain, bound) and a ``torch.profiler``
+   trace of 256 steps of the training loop: the device's idle share.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phase 3 at a tiny size on the CPU with the plain
+``--rehearse`` runs phases 3 and 6 at a tiny size on the CPU with the plain
 versions (no kernels, no timings) and also exits non-zero.
 """
 from __future__ import annotations
@@ -68,11 +90,18 @@ MODE_FAMILIES = {"l1": ("transe", 1), "l2": ("transe", 2), "dot": ("distmult", 1
 REPLACES = {
     "pairwise_scores": "src/repro/kernels/triple_score/triple_score.py:83",
     "fused_ranks": "src/repro/kernels/triple_score/triple_score.py:157",
+    "sparse_sgd_step": "src/repro/kernels/sparse_update/sparse_update.py:179",
 }
 SOURCES = {
     "pairwise_scores": "src/repro_torch/kernels/triple_score/csrc/pairwise_scores.cu",
     "fused_ranks": "src/repro_torch/kernels/triple_score/csrc/fused_ranks.cu",
+    "sparse_sgd_step": "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu",
 }
+TRAIN_BATCH = 100    # ``KGETrainer``'s default batch
+TRAIN_LR = 0.5       # ``KGETrainer``'s default learning rate
+MAX_TEST = 2_000     # link prediction's default test slice
+STEP_TRAJECTORY = 64  # consecutive steps held against the plain version
+PROFILE_STEPS = 256  # training steps under the profiler
 
 
 class SmokeFailure(RuntimeError):
@@ -451,6 +480,313 @@ def profile_serving(torch, np, tier, m, seed, card):
     return res
 
 
+# ------------------------------------------------------------ phase 5
+def hard_batch(torch, np, rng, e, r, b, dev):
+    """(pos, neg) int64 (b, 3) on ``dev``: a hub entity in most occurrences,
+    ids 0 and e−1 present, and rows shared by pos and neg."""
+    pos = np.stack([rng.integers(0, e, b), rng.integers(0, r, b), rng.integers(0, e, b)], 1)
+    neg = pos.copy()
+    side = rng.random(b) < 0.5
+    rand = rng.integers(0, e, b)
+    neg[side, 0] = rand[side]
+    neg[~side, 2] = rand[~side]
+    hub = int(rng.integers(1, e - 1))
+    pos[: (2 * b) // 3, 0] = hub
+    neg[: b // 3, 2] = hub
+    pos[-1, 2] = 0
+    neg[-1, 0] = e - 1
+    neg[1, 0] = pos[2, 2]
+    return (torch.as_tensor(pos.astype(np.int64), device=dev),
+            torch.as_tensor(neg.astype(np.int64), device=dev))
+
+
+def max_err(a, b):
+    return float((a - b).abs().max())
+
+
+def step_vs_plain(torch, np, models, sops, dev, seed, e, r):
+    """The sparse SGD step kernel against its plain version on the card:
+    one step and a 64-step trajectory for every mode, twice for the kernel."""
+    worst = 0.0
+    rng = np.random.default_rng(seed + 5)
+    for b, d in ((TRAIN_BATCH, DIM), (37, 33)):
+        start = models.init_kge(seed + d, models.KGEModel("transe", e, r, d), device=dev)
+        batches = [hard_batch(torch, np, rng, e, r, b, dev) for _ in range(STEP_TRAJECTORY)]
+        for mode in sops.SPARSE_MODES:
+            ke, kr, pe, pr = (start[k].clone() for k in ("ent", "rel", "ent", "rel"))
+            kl = sops.fused_sparse_step(ke, kr, *batches[0], TRAIN_LR, mode=mode)[2]
+            pl = sops.sparse_step_plain(pe, pr, *batches[0], TRAIN_LR, mode=mode)
+            torch.cuda.synchronize()
+            err1 = max(max_err(ke, pe), max_err(kr, pr))
+            torch.testing.assert_close(ke, pe, atol=1e-6, rtol=0, msg=lambda m: f"{mode}: {m}")
+            torch.testing.assert_close(kr, pr, atol=1e-6, rtol=0, msg=lambda m: f"{mode}: {m}")
+            torch.testing.assert_close(kl, pl, atol=0, rtol=1e-6, msg=lambda m: f"{mode}: {m}")
+            runs = []
+            for _ in range(2):
+                ke, kr = start["ent"].clone(), start["rel"].clone()
+                losses = [sops.fused_sparse_step(ke, kr, p, n, TRAIN_LR, mode=mode)[2]
+                          for p, n in batches]
+                runs.append((ke, kr, torch.stack(losses)))
+            pe, pr = start["ent"].clone(), start["rel"].clone()
+            plosses = torch.stack([sops.sparse_step_plain(pe, pr, p, n, TRAIN_LR, mode=mode)
+                                   for p, n in batches])
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(*runs)),
+                  f"sparse step {mode} B={b} d={d}: two kernel runs of {STEP_TRAJECTORY} "
+                  f"steps differ")
+            err64 = max(max_err(runs[0][0], pe), max_err(runs[0][1], pr))
+            torch.testing.assert_close(runs[0][0], pe, atol=1e-5, rtol=0)
+            torch.testing.assert_close(runs[0][1], pr, atol=1e-5, rtol=0)
+            torch.testing.assert_close(runs[0][2], plosses, atol=0, rtol=1e-5)
+            worst = max(worst, err1, err64)
+            log(f"check sparse step {mode:3s} E={e} R={r} B={b} d={d}: one step max|err|="
+                f"{err1:.3g}, loss {float(kl):.6f} vs {float(pl):.6f}; {STEP_TRAJECTORY} steps "
+                f"max|err|={err64:.3g}; reruns bit-equal")
+            del runs, ke, kr, pe, pr
+        del start
+    return worst
+
+
+# ------------------------------------------------------------ phase 6
+def make_kg(np, seed, e, r, known):
+    """The training KG: the known store as the training split, valid and
+    test ``MAX_TEST`` triples each sampled from it."""
+    from repro_torch.kge.data import KG
+
+    rng = np.random.default_rng(seed + 13)
+    kg = KG("dbpedia-uniform", e, r, known, np.arange(e))
+    kg.train = known
+    n = min(MAX_TEST, len(known))
+    kg.valid = known[rng.choice(len(known), n, replace=False)]
+    kg.test = known[rng.choice(len(known), n, replace=False)]
+    return kg
+
+
+def train_path(torch, np, models, ops, sops, tier, dev, args, known, sizes):
+    """The training path: one epoch through ``KGETrainer``, scored before
+    and after, then published and trained on past the publish."""
+    from repro_torch.kge import engine
+    from repro_torch.kge import eval as keval
+    from repro_torch.kge.trainer import KGETrainer
+
+    e, r = sizes
+    kg = make_kg(np, args.seed, e, r, known)
+    t0 = time.perf_counter()
+    trainer = KGETrainer(kg, "transe", dim=DIM, lr=TRAIN_LR, batch_size=TRAIN_BATCH,
+                         margin=4.0, seed=args.seed, device=dev)
+    pre = keval.build_score_inputs(kg, max_test=MAX_TEST)
+    setup_s = time.perf_counter() - t0
+    before = {"link_prediction": keval.link_prediction(trainer.params, trainer.model, kg,
+                                                       precomputed=pre),
+              "triple_classification": keval.triple_classification_accuracy(
+                  trainer.params, trainer.model, kg, seed=args.seed)}
+
+    padded = {}
+    strip = engine.strip_tables
+
+    def keep_padded(params, model):  # the padded tables, to read their padding rows
+        padded.update(params)
+        return strip(params, model)
+
+    engine.strip_tables = keep_padded
+    nb = 1 << (-(-len(kg.train) // TRAIN_BATCH) - 1).bit_length()
+    try:
+        sops.reset_launches()
+        ops.reset_launches()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = trainer.train_epochs(1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        epoch_s = time.perf_counter() - t0
+        launches = {**sops.LAUNCHES, **ops.LAUNCHES}
+    finally:
+        engine.strip_tables = strip
+    if dev.type == "cuda":
+        check(launches["sparse_sgd_step"] == nb,
+              f"the epoch launched {launches['sparse_sgd_step']} fused steps, not {nb}")
+    check(bool(np.isfinite(loss)), f"epoch loss {loss} is not finite")
+    for k, v in padded.items():
+        n = e if k in engine.ENT_KEYS else r
+        check(not bool(v[n:].any()), f"padding rows of {k} moved")
+    res = {"epoch_s": epoch_s, "steps": nb, "steps_per_s": nb / epoch_s, "loss": loss,
+           "n_pad": nb * TRAIN_BATCH, "e_pad": padded["ent"].shape[0],
+           "renorm": engine.resolve_renorm(nb * TRAIN_BATCH, padded["ent"].shape[0]),
+           "launches": launches, "setup_s": setup_s}
+    del padded
+    log(f"train: E={e} R={r} train={len(kg.train)} transe/l1 d={DIM} lr={TRAIN_LR} "
+        f"B={TRAIN_BATCH} on {dev}: one epoch of {nb} steps (N_pad={res['n_pad']}, "
+        f"e_pad={res['e_pad']}, renorm {res['renorm']}) in {epoch_s:.3f}s host clock, "
+        f"{res['steps_per_s']:.1f} steps/s, loss {loss:.6f}; launches {launches}")
+
+    ops.reset_launches()
+    after = {"link_prediction": keval.link_prediction(trainer.params, trainer.model, kg,
+                                                      precomputed=pre),
+             "triple_classification": keval.triple_classification_accuracy(
+                 trainer.params, trainer.model, kg, seed=args.seed)}
+    res["eval_launches"] = dict(ops.LAUNCHES)
+    if dev.type == "cuda":
+        check(ops.LAUNCHES["fused_ranks"] > 0, "link prediction never launched fused_ranks")
+    for when, x in (("before", before), ("after", after)):
+        lp = x["link_prediction"]
+        check(all(np.isfinite(v) for v in lp.values()), f"link prediction {when}: {lp}")
+        log(f"eval {when} the epoch: filtered Hit@10 {lp['hit@10']:.4f}, Hit@1 "
+            f"{lp['hit@1']:.4f}, mean rank {lp['mean_rank']:.1f} over {2 * len(pre[0])} "
+            f"ranks; triple classification {x['triple_classification']:.4f}")
+    res["before"], res["after"] = before, after
+
+    # one chunk of the trained tables' ranks against the plain count
+    test, filt_t, _ = pre
+    ch = torch.as_tensor(test[:128].astype(np.int64), device=dev)
+    q, table, mode = models.lp_query_tails(trainer.params, trainer.model, ch[:, 0], ch[:, 1])
+    q = q.contiguous()
+    gold = models.lp_gold_scores(q, table, ch[:, 2], mode)
+    filt = torch.as_tensor(filt_t[:128], device=dev)
+    plain = ops.pairwise_scores_plain(q, table, mode, block_e=16384)
+    ndiff, _ = check_ranks(torch, ops.fused_ranks(q, table, gold, filt, mode=mode),
+                           ops.fused_ranks_plain(q, table, gold, filt, mode, block_e=16384),
+                           plain, gold, "trained tables, tail ranks of 128 test triples")
+    del plain
+    log(f"check trained tables: tail rank counts of 128 test triples differ from the plain "
+        f"count on {ndiff}/128, all within near-ties")
+
+    # publish, train one more step in place, and the published version holds
+    tv = tier.publish(trainer.params)
+    qt = kg.test[:16]
+    first = tier.submit_rank(qt[:, 0], qt[:, 1], qt[:, 2])
+    tier.run_until_drained()
+    heads = torch.as_tensor(qt[:, 0].astype(np.int64), device=dev)
+    rows_before = trainer.params["ent"][heads].clone()
+    rng = np.random.default_rng(args.seed + 17)
+    pos = torch.as_tensor(kg.test[:TRAIN_BATCH].astype(np.int64), device=dev)
+    neg = pos.clone()
+    neg[:, 2] = torch.as_tensor(rng.integers(0, e, len(neg)), device=dev)
+    sops.fused_sparse_step(trainer.params["ent"], trainer.params["rel"], pos, neg, TRAIN_LR)
+    again = tier.submit_rank(qt[:, 0], qt[:, 1], qt[:, 2])
+    tier.run_until_drained()
+    check(not torch.equal(trainer.params["ent"][heads], rows_before),
+          "the step after the publish did not move the trainer's rows")
+    check(first.version == again.version == tv.version and first.state == again.state
+          == "served", f"published version not served: {first.version}, {again.version}")
+    check(np.array_equal(first.result, again.result) and bool(torch.equal(
+        tv.params["ent"][heads], rows_before)),
+          "the published version changed when its source tables were trained")
+    log(f"publish: version {tv.version} answered 16 rank requests identically before and "
+        f"after a step trained the source tables in place")
+    return trainer, res
+
+
+# ------------------------------------------------------------ phase 7
+def time_device_ms(torch, fn, per_run, runs):
+    """Median device milliseconds of one ``fn`` call: ``per_run`` calls
+    queued behind a device-side sleep, so the events bracket device
+    execution back to back and not the host's enqueue rate."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        torch.cuda._sleep(100_000_000)  # ~50 ms at 2 GHz: the host enqueues meanwhile
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(per_run):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / per_run)
+    return statistics.median(times)
+
+
+def step_timings(torch, np, models, sops, trainer, dev, card):
+    """The step at the training shape: kernel (device time), one call
+    between events (host launch included), plain version, and the bound."""
+    mem_rate, _ = peak_rates(card)
+    e, d = trainer.params["ent"].shape
+    r = trainer.params["rel"].shape[0]
+    ent, rel = trainer.params["ent"].clone(), trainer.params["rel"].clone()
+    rng = np.random.default_rng(3)
+    tri = trainer.kg.train[rng.choice(len(trainer.kg.train), TRAIN_BATCH, replace=False)]
+    pos = torch.as_tensor(tri.astype(np.int64), device=dev)
+    neg = pos.clone()
+    side = torch.as_tensor(rng.random(TRAIN_BATCH) < 0.5, device=dev)
+    rand = torch.as_tensor(rng.integers(0, e, TRAIN_BATCH), device=dev)
+    neg[:, 0] = torch.where(side, rand, pos[:, 0])
+    neg[:, 2] = torch.where(side, pos[:, 2], rand)
+
+    def kernel():
+        return sops.fused_sparse_step(ent, rel, pos, neg, TRAIN_LR)
+
+    def plain():
+        return sops.sparse_step_plain(ent, rel, pos, neg, TRAIN_LR)
+
+    ue = int(torch.unique(torch.cat([pos[:, 0], pos[:, 2], neg[:, 0], neg[:, 2]])).numel())
+    ur = int(torch.unique(torch.cat([pos[:, 1], neg[:, 1]])).numel())
+    # least bytes: every unique row read once and written once, the ids read, the loss
+    nbytes = 2 * 4 * d * (ue + ur) + 8 * 6 * TRAIN_BATCH + 4
+    # what this design moves: 6B gathered rows, the scratch written and read,
+    # the unique rows read and written, the ids, the hinges and the loss
+    design_bytes = 4 * d * (6 * TRAIN_BATCH + 2 * 6 * TRAIN_BATCH + 2 * (ue + ur)) + \
+        8 * 6 * TRAIN_BATCH * 2 + 4 * 2 * TRAIN_BATCH + 4
+    out = dict(
+        ms=time_device_ms(torch, kernel, 100, ITERS),
+        call_ms=time_ms(torch, kernel, ITERS),
+        plain_ms=time_ms(torch, plain, ITERS),
+        library_ms=None, bound_ms=1e3 * nbytes / mem_rate, bound_by="bytes",
+        bytes=nbytes, design_bytes=design_bytes, design_bound_ms=1e3 * design_bytes / mem_rate,
+        unique_rows=(ue, ur), shape=f"E={e} R={r} d={d} B={TRAIN_BATCH} mode=l1",
+    )
+    log(f"time sparse_sgd_step [{out['shape']}, {ue} + {ur} unique rows]: kernel "
+        f"{out['ms']:.4f} ms device time ({out['call_ms']:.4f} ms for one call between "
+        f"events, host launch included), plain {out['plain_ms']:.4f} ms, library none, "
+        f"bound {out['bound_ms']:.6f} ms (bytes: {nbytes}; this design moves {design_bytes}, "
+        f"{out['design_bound_ms']:.6f} ms), {100 * out['bound_ms'] / out['ms']:.2f}% of bound; "
+        f"{card}")
+    return out
+
+
+def profile_training(torch, engine, trainer, card):
+    """Device busy time and idle share over ``PROFILE_STEPS`` steps of the
+    engine's step loop on the padded Dbpedia tables (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    params, _, _ = engine.pad_tables(trainer.params, trainer.model)
+    spec = engine.shape_spec(trainer.model)
+    n = PROFILE_STEPS * TRAIN_BATCH
+    tri = torch.as_tensor(trainer.kg.train[:n].astype("int64"), device=params["ent"].device)
+    gen = torch.Generator(device=tri.device).manual_seed(1)
+    perm, ch, rand = engine.draw_epoch(gen, n, PROFILE_STEPS, TRAIN_BATCH,
+                                       trainer.model.num_entities)
+    pos = tri[perm].reshape(PROFILE_STEPS, TRAIN_BATCH, 3)
+    neg = torch.stack([torch.where(ch, rand, pos[..., 0]), pos[..., 1],
+                       torch.where(ch, pos[..., 2], rand)], dim=-1)
+    engine._fused_step(params, spec, pos[0], neg[0], TRAIN_LR)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses = [engine._fused_step(params, spec, pos[i], neg[i], TRAIN_LR)[1]
+                  for i in range(PROFILE_STEPS)]
+        torch.stack(losses).mean()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    res = {"steps": PROFILE_STEPS, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": None if busy == 0 else 1 - busy / wall_us,
+           "top": [(k[:90], v / 1e3) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])]}
+    if busy == 0:
+        log("profile train: the profiler saw no device activity; idle share not measured")
+    else:
+        log(f"profile train: {PROFILE_STEPS} steps in {res['wall_ms']:.2f} ms, device busy "
+            f"{res['device_busy_ms']:.3f} ms, idle share {res['idle_share']:.3f}; {card}")
+        for name, ms in res["top"][:6]:
+            log(f"profile train:   {ms:9.3f} ms  {100 * ms * 1e3 / busy:5.1f}%  {name}")
+    return res
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -474,16 +810,21 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _nvcc
+    from repro_torch.kernels.sparse_update import ops as sops
     from repro_torch.kernels.triple_score import ops
+    from repro_torch.kge import engine as kge_engine
     from repro_torch.kge import models
     from repro_torch import serving
     from repro_torch.serving import engine
 
     if args.rehearse:
         dev = torch.device("cpu")
-        tier, m, versions, waves, res = serve(torch, np, models, serving, ops, dev, args,
-                                              (4_000, 50, 12_000))
+        sizes = (4_000, 50, 12_000)
+        tier, m, versions, waves, res = serve(torch, np, models, serving, ops, dev, args, sizes)
         recheck_served(torch, np, models, ops, tier, m, versions, waves, dev)
+        known = draw_known(np, args.seed, *sizes)
+        train_path(torch, np, models, ops, sops, tier, dev, args, known, sizes[:2])
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -495,10 +836,11 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    build_logs = ops.build_kernels()
+    libraries = ops.LIBRARIES + sops.LIBRARIES
+    build_logs = _nvcc.build_all(libraries)
     build_s = time.perf_counter() - t0
-    log(f"build: both kernel libraries in {build_s:.2f}s")
-    for lib in ops.LIBRARIES:
+    log(f"build: {len(libraries)} kernel libraries in {build_s:.2f}s")
+    for lib in libraries:
         regs = [ln.strip() for ln in build_logs[lib.name].splitlines() if "registers" in ln]
         log(f"build {lib.name}: " + (" | ".join(regs) if regs else f"already built ({lib.path})"))
 
@@ -513,19 +855,27 @@ def main(argv=None) -> int:
     times["requests"] = request_times(torch, np, serving, m, versions[1], tier.filters, card)
     times["profile"] = profile_serving(torch, np, tier, m, args.seed, card)
 
+    e, r = DBPEDIA["entities"], DBPEDIA["relations"]
+    worst["sparse_sgd_step"] = step_vs_plain(torch, np, models, sops, dev, args.seed, e, r)
+    known = draw_known(np, args.seed, e, r, DBPEDIA["triples"])
+    trainer, train = train_path(torch, np, models, ops, sops, tier, dev, args, known, (e, r))
+    times["sparse_sgd_step"] = step_timings(torch, np, models, sops, trainer, dev, card)
+    times["profile_train"] = profile_training(torch, kge_engine, trainer, card)
+    launches = {**res["launches"], "sparse_sgd_step": train["launches"]["sparse_sgd_step"]}
+
     kernels = []
-    for name in ("pairwise_scores", "fused_ranks"):
+    for name in ("pairwise_scores", "fused_ranks", "sparse_sgd_step"):
         x = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": res["launches"][name],
-            "max_abs_err": max(worst[name], x["max_abs_err"],
+            "launches": launches[name],
+            "max_abs_err": max(worst[name], x.get("max_abs_err", 0),
                                topk_err if name == "pairwise_scores" else 0),
             "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
             "bound_by": x["bound_by"], "library_ms": x["library_ms"],
         })
     result = {"card": card, "build_s": build_s, "check_max_abs_err": worst, "serve": res,
-              "timings": times, "kernels": kernels,
+              "train": train, "timings": times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     try:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -11,6 +11,8 @@ no CUDA device and no explicit CPU request they raise
 (``kernels.dispatch.resolve_device``). On CPU tensors every kernel wrapper
 takes its plain PyTorch version, which is what the CPU tests exercise.
 
-Serving is ported first: ``serving.KGEServingTier`` answers filtered-rank
-and top-k queries through the two ``triple_score`` kernels.
+Ported so far: ``serving.KGEServingTier`` answers filtered-rank and top-k
+queries through the two ``triple_score`` kernels; ``kge.KGETrainer`` trains
+locally through the ``sparse_update`` kernel, and ``kge.link_prediction`` /
+``kge.triple_classification_accuracy`` score the trained tables.
 """

@@ -5,4 +5,5 @@
 # _nvcc.py builds each source into a shared library with a plain C interface
 # and loads it with ctypes; dispatch.py resolves devices and serving knobs.
 #
-#   triple_score — pairwise (B, E) scores and the filtered fused-rank count
+#   triple_score  — pairwise (B, E) scores and the filtered fused-rank count
+#   sparse_update — the fused margin-SGD step, in place on {ent, rel}

@@ -8,7 +8,8 @@ PyTorch version for a CPU tensor, so the tensor's device decides.
 into a device: the current CUDA device when there is one, else an error —
 a run never carries on quietly on the CPU. The serving knobs keep the JAX
 package's environment variables (``REPRO_SERVE_IMPL``,
-``REPRO_SERVE_REPLICAS``, ``REPRO_SERVE_FAULTS``).
+``REPRO_SERVE_REPLICAS``, ``REPRO_SERVE_FAULTS``), and the training step
+keeps ``REPRO_TRAIN_IMPL`` (``resolve_train_impl``).
 """
 from __future__ import annotations
 
@@ -95,3 +96,34 @@ def resolve_serve_replicas(n: Optional[int] = None) -> int:
     if n < 1:
         raise ValueError(f"serve replicas must be >= 1, got {n}")
     return n
+
+
+#: families whose margin-SGD step the fused sparse_update kernel covers
+SPARSE_KERNEL_FAMILIES = ("transe", "distmult")
+
+#: the JAX package's names of the step implementations → the port's
+TRAIN_IMPL_ALIASES = {"pallas": "fused", "xla": "sparse"}
+
+
+def resolve_train_impl(impl: Optional[str] = None, family: str = "transe") -> str:
+    """Pick the training step implementation.
+
+    ``fused`` (the JAX package's ``pallas``) — the fused sparse_update step:
+    the CUDA kernel on CUDA tables, its plain PyTorch version on CPU tables;
+    TransE and DistMult only. ``sparse`` (JAX: ``xla``) — autograd over the
+    gathered rows, every family. ``reference`` — the dense host-loop oracle.
+    ``REPRO_TRAIN_IMPL`` overrides and takes either set of names. The
+    default is ``fused`` for TransE and DistMult on every device, else
+    ``sparse``; ``fused`` asked for a family it does not cover becomes
+    ``sparse``, as in the JAX package."""
+    if impl is None:
+        impl = os.environ.get("REPRO_TRAIN_IMPL", "").strip().lower() or None
+    if impl is None:
+        impl = "fused"
+    impl = TRAIN_IMPL_ALIASES.get(impl, impl)
+    if impl not in ("fused", "sparse", "reference"):
+        raise ValueError(f"unknown train impl {impl!r} "
+                         "(fused|sparse|reference, or pallas|xla)")
+    if impl == "fused" and family not in SPARSE_KERNEL_FAMILIES:
+        impl = "sparse"  # the kernel does not cover this family's score math
+    return impl

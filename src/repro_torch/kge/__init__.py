@@ -6,3 +6,5 @@ from repro_torch.kge.models import (  # noqa: F401
     params_from_numpy,
     score_triples,
 )
+from repro_torch.kge.trainer import KGETrainer  # noqa: F401
+from repro_torch.kge.eval import link_prediction, triple_classification_accuracy  # noqa: F401

@@ -1,5 +1,13 @@
-"""Filtered link-prediction rank counts: the serving subset of the JAX
-package's ``kge/eval.py``.
+"""Evaluation: triple classification and (filtered) link prediction.
+
+Triple classification (§4.1.3): corrupt each valid/test triple 1:1, learn
+a global score threshold on the valid set, report accuracy on test.
+
+Link prediction: rank the true tail (and head) of each test triple against
+all entities, removing other true triples in Filter mode; report Mean Rank
+and Hit@1/3/10 — the metrics of Tab. 4 / Tab. 6. ``engine="reference"``
+keeps the per-triple ranking over materialized (B, E) score matrices as the
+parity oracle.
 
 Known-true entities are packed once into padded CSR-style index arrays;
 queries are decomposed into (query vector, entity table, mode) through
@@ -18,13 +26,51 @@ import torch
 
 from repro_torch.kernels.triple_score import fused_ranks
 from repro_torch.kernels.triple_score.ops import exclusion_mask
+from repro_torch.kge.data import corrupt_triples
 from repro_torch.kge.models import (
     KGEModel,
     lp_gold_scores,
     lp_query_heads,
     lp_query_tails,
+    score_all_heads,
+    score_all_tails,
     score_triples,
 )
+
+
+def best_threshold_accuracy(pos: np.ndarray, neg: np.ndarray, *,
+                            max_candidates: int = 512) -> Tuple[float, float]:
+    """(threshold, accuracy) maximizing ((pos ≥ thr) + (neg < thr)) / 2 over
+    candidate thresholds — one broadcast (C, N) comparison."""
+    cand = np.unique(np.concatenate([pos, neg]))
+    if len(cand) > max_candidates:
+        cand = cand[:: len(cand) // max_candidates]
+    acc = (
+        (pos[None, :] >= cand[:, None]).mean(axis=1)
+        + (neg[None, :] < cand[:, None]).mean(axis=1)
+    ) / 2.0
+    best = int(np.argmax(acc))
+    return float(cand[best]), float(acc[best])
+
+
+def triple_classification_accuracy(params, model: KGEModel, kg, *, seed: int = 0) -> float:
+    """Accuracy on ``kg.test`` at the threshold learnt on ``kg.valid``, each
+    split against one 1:1 corruption drawn from ``seed`` (the same numpy
+    draws as the JAX package's). Scores run on the params' device."""
+    rng = np.random.default_rng(seed)
+    va, te = kg.valid, kg.test
+    va_neg = corrupt_triples(rng, va, kg.num_entities)
+    te_neg = corrupt_triples(rng, te, kg.num_entities)
+    dev = params["ent"].device
+
+    def scores(t):
+        t = torch.as_tensor(np.asarray(t, np.int64), device=dev)
+        return score_triples(params, model, t[:, 0], t[:, 1], t[:, 2]).cpu().numpy()
+
+    sv_pos, sv_neg = scores(va), scores(va_neg)
+    thr, _ = best_threshold_accuracy(sv_pos, sv_neg)
+    st_pos, st_neg = scores(te), scores(te_neg)
+    return float(((st_pos >= thr).mean() + (st_neg < thr).mean()) / 2.0)
 
 
 # ---------------------------------------------------------------------------
@@ -147,3 +193,95 @@ def side_counts_dispatch(params, model: KGEModel, h, r, t, filt, *, side: str,
     a CUDA device the caller records an event after it and polls it."""
     return side_counts_graph(params, model, h, r, t, filt, side=side,
                              block_e=block_e)
+
+
+def build_score_inputs(kg, *, split: str = "test", max_test: int = 2000,
+                       filtered: bool = True) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(test, filt_t, filt_h) for ``link_prediction(..., precomputed=...)``:
+    the split arrays are immutable, so build these once per (kg, split,
+    max_test) and reuse them across evaluations."""
+    test = np.asarray(getattr(kg, split))[:max_test]
+    all_triples = np.concatenate([kg.train, kg.valid, kg.test]) if filtered else None
+    filt_t, filt_h = build_filter_arrays(test, all_triples, filtered=filtered)
+    return test, filt_t, filt_h
+
+
+def streaming_rank_counts(params, model: KGEModel, chunk: np.ndarray, filt_t: np.ndarray,
+                          filt_h: np.ndarray, *, block_e: int = 512
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Filtered rank counts (tail, head) for one chunk."""
+    return (
+        streaming_side_counts(params, model, chunk, filt_t, side="tail", block_e=block_e),
+        streaming_side_counts(params, model, chunk, filt_h, side="head", block_e=block_e),
+    )
+
+
+def _metrics(ranks: np.ndarray) -> Dict[str, float]:
+    ranks = ranks.astype(np.float64)
+    return {
+        "mean_rank": float(ranks.mean()),
+        "hit@1": float((ranks <= 1).mean()),
+        "hit@3": float((ranks <= 3).mean()),
+        "hit@10": float((ranks <= 10).mean()),
+    }
+
+
+def link_prediction(params, model: KGEModel, kg, *, filtered: bool = True,
+                    max_test: int = 2000, batch: int = 128, split: str = "test",
+                    engine: str = "auto", block_e: int = 512,
+                    precomputed: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
+                    ) -> Dict[str, float]:
+    """Filtered/raw link prediction. ``engine``: "auto" | "fused" |
+    "reference". "auto" and "fused" count ranks through the fused-rank
+    kernel (its plain version on the CPU), ``batch`` test triples at a time;
+    "reference" ranks each triple on materialized (B, E) score matrices.
+    ``precomputed`` takes a ``build_score_inputs(...)`` triple and skips
+    building the test slice and its filters."""
+    if engine not in ("auto", "fused", "reference"):
+        raise ValueError(f"unknown engine {engine!r} (auto|fused|reference)")
+    if precomputed is not None and engine != "reference":
+        test, filt_t, filt_h = precomputed
+    else:
+        test = np.asarray(getattr(kg, split))[:max_test]
+        all_triples = np.concatenate([kg.train, kg.valid, kg.test]) if filtered else None
+        if engine == "reference":
+            return _link_prediction_reference(params, model, kg, test, all_triples,
+                                              filtered=filtered, batch=batch)
+        filt_t, filt_h = build_filter_arrays(test, all_triples, filtered=filtered)
+    ranks = np.empty(2 * len(test), dtype=np.int64)
+    for i in range(0, len(test), batch):
+        chunk = test[i: i + batch]
+        c_tail, c_head = streaming_rank_counts(params, model, chunk, filt_t[i: i + batch],
+                                               filt_h[i: i + batch], block_e=block_e)
+        # interleaved as the reference loop: tail rank, then head rank
+        ranks[2 * i: 2 * (i + len(chunk)): 2] = c_tail + 1
+        ranks[2 * i + 1: 2 * (i + len(chunk)): 2] = c_head + 1
+    return _metrics(ranks)
+
+
+def _link_prediction_reference(params, model: KGEModel, kg, test, all_triples, *,
+                               filtered: bool, batch: int) -> Dict[str, float]:
+    """The oracle: (B, E) score matrices on the host and per-triple ranking."""
+    hr_t, rt_h = _filter_mask(all_triples, kg.num_entities) if filtered else ({}, {})
+    dev = params["ent"].device
+    ranks = []
+    for i in range(0, len(test), batch):
+        chunk = test[i: i + batch]
+        h, r, t = (torch.as_tensor(np.asarray(chunk[:, j], np.int64), device=dev)
+                   for j in range(3))
+        s_tail = score_all_tails(params, model, h, r).cpu().numpy()
+        s_head = score_all_heads(params, model, r, t).cpu().numpy()
+        for j, (hh, rr, tt) in enumerate(chunk):
+            row = s_tail[j].copy()
+            if filtered:
+                for other_t in hr_t.get((int(hh), int(rr)), ()):
+                    if other_t != int(tt):
+                        row[other_t] = -np.inf
+            ranks.append(1 + int((row > row[int(tt)]).sum()))
+            row = s_head[j].copy()
+            if filtered:
+                for other_h in rt_h.get((int(rr), int(tt)), ()):
+                    if other_h != int(hh):
+                        row[other_h] = -np.inf
+            ranks.append(1 + int((row > row[int(hh)]).sum()))
+    return _metrics(np.array(ranks))

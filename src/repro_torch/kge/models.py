@@ -87,9 +87,26 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device=None) -> Params:
     }
 
 
+class _AbsJax(torch.autograd.Function):
+    """``|x|`` whose derivative at ``x = 0`` is +1, as JAX's: ``lax.abs``
+    differentiates as ``select(x >= 0, g, −g)``, where PyTorch's ``abs``
+    gives 0 there. Exact zeros are common on dyadic tables, so without this
+    an L1 step of the autograd paths would differ from the JAX package's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x.abs()
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
 def _norm(x, ord_):
     if ord_ == 1:
-        return x.abs().sum(-1)
+        return (_AbsJax.apply(x) if x.requires_grad else x.abs()).sum(-1)
     return sqrt_rn(x.square().sum(-1) + 1e-12)
 
 
@@ -262,3 +279,46 @@ def score_all_heads(params: Params, m: KGEModel, r, t) -> torch.Tensor:
     rr = r[:, None].expand(b, e).reshape(-1)
     tt = t[:, None].expand(b, e).reshape(-1)
     return score_triples(params, m, hh, rr, tt).reshape(b, e)
+
+
+# ---------------------------------------------------------------------------
+# training surface: the loss, the virtual-row pads and the norm projection
+# ---------------------------------------------------------------------------
+def margin_loss(pos_scores: torch.Tensor, neg_scores: torch.Tensor,
+                margin: float) -> torch.Tensor:
+    """Margin ranking loss ``mean(relu(margin − pos + neg))``."""
+    return torch.relu(margin - pos_scores + neg_scores).mean()
+
+
+def virtual_pad_rows(params: Params, dim: int, n_ent: int, n_rel: int) -> Params:
+    """Inert rows appended to the family-specific tables when ``n_ent``
+    virtual entities / ``n_rel`` virtual relations extend ``ent``/``rel``:
+    zero projections for TransD, unit normals for TransH, identity maps for
+    TransR; on the device of ``params["ent"]``."""
+    dev = params["ent"].device
+    pads: Params = {}
+    if "ent_p" in params:
+        pads["ent_p"] = torch.zeros((n_ent, dim), dtype=torch.float32, device=dev)
+        pads["rel_p"] = torch.zeros((n_rel, dim), dtype=torch.float32, device=dev)
+    if "norm_vec" in params:
+        padr = torch.ones((n_rel, dim), dtype=torch.float32, device=dev)
+        pads["norm_vec"] = padr / sqrt_rn(torch.tensor(float(dim), device=dev))
+    if "proj" in params:
+        eye = torch.eye(dim, dtype=torch.float32, device=dev)
+        pads["proj"] = eye[None].repeat(n_rel, 1, 1)
+    return pads
+
+
+def entity_norms(rows: torch.Tensor) -> torch.Tensor:
+    """(n, 1) L2 norms of ``rows``, correctly rounded as XLA's ``sqrt``."""
+    return sqrt_rn(rows.square().sum(-1, keepdim=True))
+
+
+def normalize_entities(params: Params) -> Params:
+    """Project entity embeddings onto the unit ball (TransE constraint).
+    Returns a new dict whose ``ent`` is a new tensor; the input is left
+    as it was."""
+    out = dict(params)
+    ent = params["ent"]
+    out["ent"] = ent / torch.clamp(entity_norms(ent), min=1.0)
+    return out

@@ -6,11 +6,13 @@ the longest row, plus a trailing all(−1) sentinel row for unknown keys.
 Known triples outlive table versions: one pack serves every version.
 
 ``TableVersion`` — one immutable published snapshot of an owner's tables:
-the params dict, a per-version non-finite-row bitmask (one ``isfinite``
-reduction per table on the tables' device; request validation is then an
-O(B) host lookup), and a per-device copy cache. Staging onto the device
-the params already sit on is zero-copy; every other device costs one
-counted transfer.
+a copy of the params dict, a per-version non-finite-row bitmask (one
+``isfinite`` reduction per table on the tables' device; request validation
+is then an O(B) host lookup), and a per-device copy cache. The copy is taken
+when the version is built, because the trainer updates its tables in place:
+without it, a training step after a publish would change the answers of
+requests already pinned to that version. Staging onto the device the copy
+sits on is zero-copy; every other device costs one counted transfer.
 """
 from __future__ import annotations
 
@@ -88,11 +90,13 @@ def _bad_row_mask(params, keys, n: int) -> np.ndarray:
 
 
 class TableVersion:
-    """One immutable published (owner, version) snapshot of serving tables."""
+    """One immutable published (owner, version) snapshot of serving tables.
+    It holds its own copy of ``params``: whatever later writes into the
+    source tables (an in-place training step) leaves the version as it was."""
 
     def __init__(self, params, model, filters: FilterPack, *,
                  version: int = 0, owner: Optional[str] = None):
-        self.params = dict(params)
+        self.params = {k: v.clone() for k, v in params.items()}
         self.model = model
         self.filters = filters
         self.version = int(version)
@@ -107,8 +111,8 @@ class TableVersion:
         self.transfers = 0
 
     def on(self, device) -> Dict[str, torch.Tensor]:
-        """The tables on ``device``: the params dict itself where they
-        already sit (zero-copy), else one copy made on first use and reused
+        """The tables on ``device``: the version's own dict where it
+        already sits (zero-copy), else one copy made on first use and reused
         afterwards."""
         device = torch.device(device)
         got = self._ondev.get(device)

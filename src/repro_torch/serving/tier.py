@@ -28,8 +28,9 @@ submitted request resolves to exactly one of served / shed / failed, and
 ``run_until_drained`` asserts ``served + shed + failed == submitted``.
 
 **Version hot-swap** — ``publish(params)`` builds an immutable
-``TableVersion``, stages it onto every replica (zero-copy on the device the
-params already sit on) and flips the active pointer between batches.
+``TableVersion`` (its own copy of the tables, so training that goes on in
+place cannot reach it), stages it onto every replica (zero-copy on the
+device the copy sits on) and flips the active pointer between batches.
 In-flight batches finish (and retry) on the version they were dispatched
 on; ``_dispatch`` re-checks every request against the non-finite bitmask of
 the version the batch is pinned to. ``warm_buckets=`` runs each configured
@@ -261,9 +262,9 @@ class KGEServingTier:
 
     def publish(self, params, *, version: Optional[int] = None) -> TableVersion:
         """Publish a new table version and atomically make it active:
-        build the ``TableVersion`` (one finiteness reduction per table),
-        stage it onto every replica (zero-copy where the params already
-        sit), run the warm buckets, then flip the active pointer."""
+        build the ``TableVersion`` (one copy of the tables, one finiteness
+        reduction per table), stage it onto every replica (zero-copy where
+        the copy sits), run the warm buckets, then flip the active pointer."""
         with self._publish_lock:
             v = (
                 (self._active.version + 1 if self._active is not None else 0)

@@ -42,3 +42,21 @@ def triples(rng: np.random.Generator, n: int, e: int, r: int) -> np.ndarray:
     return np.stack(
         [rng.integers(0, e, n), rng.integers(0, r, n), rng.integers(0, e, n)], axis=1
     ).astype(np.int64)
+
+
+def jax_draws(key, epochs: int, n_pad: int, nb: int, batch: int, num_entities: int):
+    """Each epoch's (perm, corrupt_head, rand_ent) exactly as the JAX
+    package's ``kge.engine.train_scan_graph`` draws them from ``key`` inside
+    its scan — the draws the port's ``train_scan_graph`` takes as input."""
+    import jax.numpy as jnp
+
+    out = []
+    for ekey in jax.random.split(key, epochs):
+        kp, kc, ks = jax.random.split(ekey, 3)
+        out.append((
+            np.asarray(jax.random.permutation(kp, n_pad)),
+            np.asarray(jax.random.bernoulli(kc, 0.5, (nb, batch))),
+            np.asarray(jax.random.randint(ks, (nb, batch), 0, jnp.int32(num_entities),
+                                          dtype=jnp.int32)),
+        ))
+    return out

@@ -11,6 +11,11 @@ Scores agree within atol 1e-4 / rtol 1e-5. Rank counts differ from the plain
 version only by near-ties (entities whose plain score lies within
 1e-5·(1+|gold|) of gold), and not at all on dyadic inputs, where every fp32
 sum is exact in any order.
+
+The sparse SGD step agrees with its plain version within atol 1e-6 after one
+step and 1e-5 after 64 (loss rtol 1e-6); on dyadic tables it is bit-equal
+to the plain version on the CPU (which sums in the kernel's order), and two
+runs of the kernel are always bit-equal.
 """
 import numpy as np
 import pytest
@@ -23,7 +28,10 @@ from repro_torch.kernels.triple_score import (
     pairwise_scores,
     pairwise_scores_plain,
 )
+from repro_torch.kernels.sparse_update import LAUNCHES as STEP_LAUNCHES
+from repro_torch.kernels.sparse_update import fused_sparse_step, sparse_step_plain
 from repro_torch.kge.models import KGEModel, params_from_numpy
+from repro_torch.kge.trainer import KGETrainer
 from repro_torch.serving import KGECandidateRanker, KGEServingTier
 
 
@@ -136,3 +144,137 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_dev):
     with pytest.raises(TypeError):
         fused_ranks(q, ent, torch.zeros(2, device=cuda_dev),
                     torch.zeros(2, 1, dtype=torch.int64, device=cuda_dev))
+
+
+def _hard_batch(rng, e, r, b):
+    """(pos, neg) int64 (b, 3): a hub entity in most occurrences, ids 0 and
+    e−1, and rows shared between pos and neg."""
+    pos = np.stack([rng.integers(0, e, b), rng.integers(0, r, b), rng.integers(0, e, b)], 1)
+    neg = pos.copy()
+    side = rng.random(b) < 0.5
+    rand = rng.integers(0, e, b)
+    neg[side, 0] = rand[side]
+    neg[~side, 2] = rand[~side]
+    hub = e // 2
+    pos[: (2 * b) // 3, 0] = hub
+    neg[: b // 3, 2] = hub
+    pos[-1, 2] = 0
+    neg[-1, 0] = e - 1
+    if b > 2:
+        neg[1, 0] = pos[2, 2]
+    return torch.as_tensor(pos.astype(np.int64)), torch.as_tensor(neg.astype(np.int64))
+
+
+def _step_tables(rng, e, r, d, dev):
+    return (torch.as_tensor(rng.normal(0, 0.3, (e, d)).astype(np.float32), device=dev),
+            torch.as_tensor(rng.normal(0, 0.3, (r, d)).astype(np.float32), device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+@pytest.mark.parametrize("b,d", [(100, 100), (37, 33), (1, 7), (257, 128), (8, 1),
+                                 (4096, 100)])
+def test_sparse_step_matches_plain(cuda_dev, mode, b, d):
+    rng = np.random.default_rng(b * 131 + d)
+    e, r = 5000, 40
+    ent, rel = _step_tables(rng, e, r, d, cuda_dev)
+    pos, neg = (x.to(cuda_dev) for x in _hard_batch(rng, e, r, b))
+    pe, pr = ent.clone(), rel.clone()
+    before = STEP_LAUNCHES["sparse_sgd_step"]
+    out_e, out_r, loss = fused_sparse_step(ent, rel, pos, neg, 0.5, mode=mode, margin=4.0)
+    assert out_e is ent and out_r is rel
+    assert STEP_LAUNCHES["sparse_sgd_step"] == before + 1
+    ploss = sparse_step_plain(pe, pr, pos, neg, 0.5, mode=mode, margin=4.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ent, pe, atol=1e-6, rtol=0)
+    torch.testing.assert_close(rel, pr, atol=1e-6, rtol=0)
+    torch.testing.assert_close(loss, ploss, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+def test_sparse_step_64_steps_and_bit_equal_reruns(cuda_dev, mode):
+    rng = np.random.default_rng(7)
+    e, r, d, b = 3000, 30, 100, 100
+    start = _step_tables(rng, e, r, d, cuda_dev)
+    batches = [tuple(x.to(cuda_dev) for x in _hard_batch(rng, e, r, b)) for _ in range(64)]
+    runs = []
+    for _ in range(2):
+        ent, rel = (t.clone() for t in start)
+        losses = [fused_sparse_step(ent, rel, p, n, 0.5, mode=mode)[2] for p, n in batches]
+        runs.append((ent, rel, torch.stack(losses)))
+    pe, pr = (t.clone() for t in start)
+    plosses = torch.stack([sparse_step_plain(pe, pr, p, n, 0.5, mode=mode) for p, n in batches])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(runs[0], runs[1]))
+    torch.testing.assert_close(runs[0][0], pe, atol=1e-5, rtol=0)
+    torch.testing.assert_close(runs[0][1], pr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(runs[0][2], plosses, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+def test_sparse_step_bit_equal_on_dyadic(cuda_dev, mode):
+    rng = np.random.default_rng(11)
+    e, r, d, b = 500, 9, 16, 8
+    ent = torch.as_tensor(_dyadic(rng, (e, d)))
+    rel = torch.as_tensor(_dyadic(rng, (r, d)))
+    pos, neg = _hard_batch(rng, e, r, b)
+    ke, kr = ent.clone().to(cuda_dev), rel.clone().to(cuda_dev)
+    _, _, kl = fused_sparse_step(ke, kr, pos.to(cuda_dev), neg.to(cuda_dev), 0.5, mode=mode)
+    pl = sparse_step_plain(ent, rel, pos, neg, 0.5, mode=mode)
+    assert torch.equal(ke.cpu(), ent) and torch.equal(kr.cpu(), rel)
+    assert torch.equal(kl.cpu(), pl)
+
+
+@pytest.mark.cuda
+def test_sparse_step_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev):
+    ent = torch.zeros(50, 8, device=cuda_dev)
+    rel = torch.zeros(5, 8, device=cuda_dev)
+    pos = torch.zeros(4, 3, dtype=torch.int64, device=cuda_dev)
+    with pytest.raises(TypeError):
+        fused_sparse_step(ent.double(), rel.double(), pos, pos, 0.5)
+    with pytest.raises(TypeError):
+        fused_sparse_step(ent, rel, pos.int(), pos.int(), 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_sparse_step(torch.zeros(8, 50, device=cuda_dev).T, rel, pos, pos, 0.5)
+    with pytest.raises(ValueError, match="different devices"):
+        fused_sparse_step(ent, rel.cpu(), pos, pos, 0.5)
+    big = torch.zeros(10_000, 3, dtype=torch.int64, device=cuda_dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_sparse_step(ent, rel, big, big, 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,norm_ord,impl", [("transe", 1, "fused"),
+                                                  ("transe", 2, "fused"),
+                                                  ("distmult", 1, "fused"),
+                                                  ("transh", 1, "sparse")])
+def test_trainer_on_the_card_equals_the_cpu_trainer(cuda_dev, family, norm_ord, impl):
+    """The same start tables and the same explicit draws through the trainer
+    on the card (kernel) and on the CPU (plain version): within 1e-5."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(0)
+    e, r, d, n, b = 3000, 20, 32, 2000, 100
+    tri = np.stack([rng.integers(0, e, n), rng.integers(0, r, n), rng.integers(0, e, n)], 1)
+    kg = SimpleNamespace(num_entities=e, num_relations=r, train=tri.astype(np.int32))
+    trainers = [KGETrainer(kg, family, dim=d, seed=0, device=dev)
+                for dev in (cuda_dev, torch.device("cpu"))]
+    start = {k: v.cpu() for k, v in trainers[0].params.items()}
+    for t in trainers:
+        t.model = dataclasses.replace(t.model, norm_ord=norm_ord)
+        t.params = {k: v.to(t.device) for k, v in start.items()}
+    nb = 32  # 20 batches, cycle-padded to a power of two
+    n_pad = nb * b
+    draws = [(rng.permutation(n_pad), rng.random((nb, b)) < 0.5, rng.integers(0, e, (nb, b)))
+             for _ in range(3)]
+    before = STEP_LAUNCHES["sparse_sgd_step"]
+    losses = [t.train_epochs(3, impl=impl, draws=draws) for t in trainers]
+    if impl == "fused":
+        assert STEP_LAUNCHES["sparse_sgd_step"] == before + 3 * nb
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+    for k in start:
+        torch.testing.assert_close(trainers[0].params[k].cpu(), trainers[1].params[k],
+                                   atol=1e-5, rtol=0)

@@ -1,12 +1,16 @@
-"""Port parity: the serving subset of ``repro_torch.kge.eval`` against the
-JAX package's ``kge.eval`` on the same tables and queries.
+"""Port parity: ``repro_torch.kge.eval`` against the JAX package's
+``kge.eval`` on the same tables and queries.
 
 Filter construction is bit-equal. Side counts (tail and head) are exact on
 dyadic tables for the l1, l2 and dot families, against both of the JAX
 package's rank implementations (the Pallas kernel in interpret mode and the
 ``lax.scan`` twin); RotatE (``cl1``) and the projection families, whose
-scores are not exact in fp32, may differ only by near-ties.
+scores are not exact in fp32, may differ only by near-ties. Threshold
+search is bit-equal, triple classification and the link-prediction metrics
+(both engines) equal on dyadic tables.
 """
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,3 +135,58 @@ def test_raw_filters_rank_against_a_brute_force_count(world):
     gold = s[np.arange(len(test)), test[:, 2]]
     np.testing.assert_array_equal(got, (s > gold[:, None]).sum(1))
     assert jm.MODEL_FAMILIES == tm.MODEL_FAMILIES
+
+
+@pytest.fixture(scope="module")
+def kg(world):
+    known, _ = world
+    return SimpleNamespace(num_entities=E, num_relations=R, train=known[:240],
+                           valid=known[240:270], test=known[270:])
+
+
+def test_best_threshold_accuracy_bit_equal():
+    rng = np.random.default_rng(5)
+    for n, m_cand in ((40, 512), (700, 512), (300, 64)):
+        pos = rng.normal(1, 1, n).astype(np.float32)
+        neg = np.round(rng.normal(0, 1, n), 1).astype(np.float32)  # ties
+        assert (teval.best_threshold_accuracy(pos, neg, max_candidates=m_cand)
+                == jeval.best_threshold_accuracy(pos, neg, max_candidates=m_cand))
+
+
+@pytest.mark.parametrize("family,norm_ord,d", EXACT)
+def test_triple_classification_accuracy_equal_on_dyadic(kg, family, norm_ord, d):
+    jmod, jp, tmod, tp = _models(family, norm_ord, d, dyadic=True)
+    for seed in (0, 3):
+        assert (teval.triple_classification_accuracy(tp, tmod, kg, seed=seed)
+                == jeval.triple_classification_accuracy(jp, jmod, kg, seed=seed))
+
+
+@pytest.mark.parametrize("family,norm_ord,d", EXACT[:3])
+def test_link_prediction_metrics_equal_on_dyadic(kg, family, norm_ord, d):
+    jmod, jp, tmod, tp = _models(family, norm_ord, d, dyadic=True)
+    for filtered in (True, False):
+        want = jeval.link_prediction(jp, jmod, kg, filtered=filtered, batch=8, block_e=16,
+                                     engine="reference")
+        assert jeval.link_prediction(jp, jmod, kg, filtered=filtered, batch=8,
+                                     block_e=16) == want
+        for engine in ("auto", "fused", "reference"):
+            got = teval.link_prediction(tp, tmod, kg, filtered=filtered, batch=8,
+                                        block_e=16, engine=engine)
+            assert got == want, (engine, filtered)
+    pre = teval.build_score_inputs(kg, max_test=20)
+    for g, w in zip(pre, jeval.build_score_inputs(kg, max_test=20)):
+        np.testing.assert_array_equal(g, w)
+    assert (teval.link_prediction(tp, tmod, kg, precomputed=pre, batch=8)
+            == jeval.link_prediction(jp, jmod, kg, max_test=20, batch=8))
+    with pytest.raises(ValueError, match="unknown engine"):
+        teval.link_prediction(tp, tmod, kg, engine="nope")
+
+
+def test_streaming_rank_counts_pair_the_two_sides(world):
+    known, test = world
+    jmod, jp, tmod, tp = _models("transe", 2, 32, dyadic=True)
+    filt_t, filt_h = jeval.build_filter_arrays(test, known, filtered=True)
+    got = teval.streaming_rank_counts(tp, tmod, test, filt_t, filt_h, block_e=16)
+    want = jeval.streaming_rank_counts(jp, jmod, test, filt_t, filt_h, block_e=16)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))

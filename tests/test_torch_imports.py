@@ -34,8 +34,12 @@ def _imported_roots(path: pathlib.Path):
 def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for want in ("chip_smoke.py", "src/repro_torch/serving/tier.py",
-                 "src/repro_torch/kernels/triple_score/ops.py"):
+                 "src/repro_torch/kernels/triple_score/ops.py",
+                 "src/repro_torch/kge/engine.py", "src/repro_torch/kge/trainer.py",
+                 "src/repro_torch/kernels/sparse_update/ops.py",
+                 "src/repro_torch/kernels/sparse_update/ref.py"):
         assert want in names
+    assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -54,6 +58,7 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
     from repro_torch.core.distributed import replica_devices
     from repro_torch.kernels.dispatch import resolve_device
     from repro_torch.kge.models import KGEModel, init_kge, params_from_numpy
+    from repro_torch.kge.trainer import KGETrainer
     from repro_torch.serving import KGEServingTier
 
     m = KGEModel("transe", 10, 2, 4)
@@ -70,6 +75,11 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
     params = init_kge(0, m, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         KGEServingTier(params, m)
+    kg = type("KG", (), {"num_entities": 10, "num_relations": 2})()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KGETrainer(kg, dim=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        KGETrainer(kg, dim=4, device="cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -78,14 +88,18 @@ def test_kernel_build_is_lazy():
     and loads no kernel library."""
     code = (
         "import sys; import repro_torch.serving, repro_torch.kge.eval\n"
+        "import repro_torch.kge.trainer\n"
         "from repro_torch.kernels.triple_score import ops\n"
-        "assert all(lib._lib is None for lib in ops.LIBRARIES)\n"
-        "assert 'jax' not in sys.modules\n"
-        "print(ops.PAIRWISE_LIB.path.name, ops.FUSED_RANKS_LIB.path.name)\n"
+        "from repro_torch.kernels.sparse_update import ops as sops\n"
+        "assert all(lib._lib is None for lib in ops.LIBRARIES + sops.LIBRARIES)\n"
+        "assert 'jax' not in sys.modules and 'triton' not in sys.modules\n"
+        "print(ops.PAIRWISE_LIB.path.name, ops.FUSED_RANKS_LIB.path.name,"
+        " sops.STEP_LIB.path.name)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120)
     assert out.returncode == 0, out.stderr
-    pair, fused = out.stdout.split()
+    pair, fused, step = out.stdout.split()
+    assert step.startswith("libsparse_update_step-") and step.endswith(".so")
     assert pair.startswith("libtriple_score_pairwise-") and pair.endswith(".so")
     assert fused.startswith("libtriple_score_fused_ranks-")
