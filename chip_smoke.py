@@ -3,15 +3,17 @@
 each against its plain PyTorch version, serves filtered-rank and top-k
 traffic at full width through ``repro_torch.serving.KGEServingTier``, trains
 one full-width epoch through ``repro_torch.kge.trainer.KGETrainer`` and
-scores it, and times the kernels.
+scores it, runs one full-width PPAT handshake with its KGEmb update,
+retrain and backtrack through ``repro_torch.core``, and times the kernels.
 
     python3 chip_smoke.py            # one CUDA card; a minute or two on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
-1. the card (``nvidia-smi``: name, power limit), then the three kernel
+1. the card (``nvidia-smi``: name, power limit), then the four kernel
    libraries (``triple_score``: pairwise scores and fused ranks;
-   ``sparse_update``: the SGD step) built from the ``csrc`` directories under
+   ``sparse_update``: the SGD step; ``csls``: the cosine matrix) built from
+   the ``csrc`` directories under
    ``src/repro_torch/kernels``, one ``nvcc`` each, all started together;
 2. kernel vs plain version on the card, for the four score modes through the
    families that use them (TransE l1 and l2, DistMult dot, ComplEx dot over
@@ -53,13 +55,41 @@ Phases (every failed check ends the run with a non-zero exit):
    published to the tier, trained one more step in place, and the published
    version must still answer as before;
 7. timings of the step (kernel, plain, bound) and a ``torch.profiler``
-   trace of 256 steps of the training loop: the device's idle share.
+   trace of 256 steps of the training loop: the device's idle share;
+8. the cosine kernel against its plain version on the card: (n, m, d) =
+   (1000, 777, 100) and (129, 4097, 33) with a zero row on each side (atol
+   1e-5, zero rows exactly 0), ``csls_matrix`` around it (atol 4e-5), and
+   the blockwise CSLS retrieval argmax against the whole plain CSLS matrix
+   at n = m = 8,192 (equal up to near-ties, 1e-5);
+9. the handshake path at full width: client Yago (E = 286,389, R = 37,
+   1,824,322 uniform triples from ``--seed``, untrained tables), host the
+   trained Dbpedia-sized trainer of phase 6, 123,853 aligned entities drawn
+   from ``--seed`` (Yago–Dbpedia, the paper's largest pair), the host's
+   aligned rows set to the client's turned by a seeded orthogonal Q plus
+   0.01·N(0, 1). ``PPATConfig()`` (200 rounds, B = 32, 4 teachers, hidden
+   128), d = 100, average aggregation, procrustes refinement, virtual
+   extension (≤ 2,000 neighbours), one retrain epoch, backtrack by the
+   scheduler's default accuracy score (Hit@10 beside it), accept or
+   restore. Launch counters are zeroed just before and read just after;
+   checks: ε finite and equal to the accountant over the returned vote
+   counts, the cosine, step and rank kernels all launched, CSLS retrieval
+   < 0.01 with W = I and ≥ 0.9 after PPAT + procrustes, padding rows zero,
+   table shapes restored, tables bit-equal to the snapshot (reject) or the
+   retrained ones (accept), a version published before answering as
+   before; then 16 PPAT rounds on the card and on the CPU from the same
+   draws: equal vote counts, W within 1e-4;
+10. timings: the cosine kernel at one retrieval block (4,096 × 123,853,
+   d = 100; its output held against the plain version first), plain and
+   library (``F.normalize(a) @ F.normalize(b).T``, TF32 off) times with the
+   bound; the whole retrieval on the host clock with its launches; and a
+   ``torch.profiler`` trace of a second handshake: device time by kernel and
+   the device's idle share.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3 and 6 at a tiny size on the CPU with the plain
-versions (no kernels, no timings) and also exits non-zero.
+``--rehearse`` runs phases 3, 6 and 9 at a tiny size on the CPU with the
+plain versions (no kernels, no timings) and also exits non-zero.
 """
 from __future__ import annotations
 
@@ -91,17 +121,26 @@ REPLACES = {
     "pairwise_scores": "src/repro/kernels/triple_score/triple_score.py:83",
     "fused_ranks": "src/repro/kernels/triple_score/triple_score.py:157",
     "sparse_sgd_step": "src/repro/kernels/sparse_update/sparse_update.py:179",
+    "cosine_matrix": "src/repro/kernels/csls/csls.py:39",
 }
 SOURCES = {
     "pairwise_scores": "src/repro_torch/kernels/triple_score/csrc/pairwise_scores.cu",
     "fused_ranks": "src/repro_torch/kernels/triple_score/csrc/fused_ranks.cu",
     "sparse_sgd_step": "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu",
+    "cosine_matrix": "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu",
 }
 TRAIN_BATCH = 100    # ``KGETrainer``'s default batch
 TRAIN_LR = 0.5       # ``KGETrainer``'s default learning rate
 MAX_TEST = 2_000     # link prediction's default test slice
 STEP_TRAJECTORY = 64  # consecutive steps held against the plain version
 PROFILE_STEPS = 256  # training steps under the profiler
+#: Yago's size in the paper's Table 2, and the Yago–Dbpedia alignment, the
+#: largest pair of Table 3 (``kge/data.py::PAPER_KG_STATS``, ``PAPER_ALIGNMENTS``)
+YAGO = dict(entities=286_389, relations=37, triples=1_824_322)
+ALIGNED = 123_853
+RETRIEVAL_BLOCK = 4096   # ``core/alignment.py``'s rows per cosine launch
+CHECK_RETRIEVAL = 8192   # n = m of the blockwise-vs-full retrieval check
+PPAT_CHECK_ROUNDS = 16   # PPAT rounds held card vs CPU
 
 
 class SmokeFailure(RuntimeError):
@@ -787,6 +826,366 @@ def profile_training(torch, engine, trainer, card):
     return res
 
 
+# ------------------------------------------------------------ phase 8
+def cosine_vs_plain(torch, ck, al, dev, seed):
+    """The cosine kernel against its plain version on the card: ragged
+    shapes with a zero row on each side, CSLS around it, and the blockwise
+    retrieval argmax against the whole plain CSLS matrix."""
+    worst = 0.0
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    for n, m, d in ((1000, 777, 100), (129, 4097, 33)):
+        a = torch.randn(n, d, device=dev, generator=g)
+        b = torch.randn(m, d, device=dev, generator=g)
+        a[n // 2] = 0.0
+        b[m - 1] = 0.0
+        got, want = ck.cosine_matrix(a, b), ck.cosine_matrix_plain(a, b)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        check(not bool(got[n // 2].any()) and not bool(got[:, m - 1].any()),
+              f"cosine ({n}, {m}, {d}): a zero row's cosines are not exactly 0")
+        r_a, r_b = ck.topk_means(want, 10)
+        s = ck.csls_matrix(a, b)
+        s_err = max_err(s, 2 * want - r_a[:, None] - r_b[None, :])
+        # 2·cos (2e-5) plus two top-k means (1e-5 each)
+        check(s_err <= 4e-5, f"csls_matrix ({n}, {m}, {d}) max|err| {s_err} > 4e-5")
+        worst = max(worst, err)
+        log(f"check cosine ({n}, {m}, d={d}) with zero rows: max|err|={err:.3g} (atol 1e-5) "
+            f"ok; csls_matrix max|err|={s_err:.3g} (atol 4e-5) ok")
+    n = CHECK_RETRIEVAL
+    x = torch.randn(n, DIM, device=dev, generator=g)
+    q, _ = torch.linalg.qr(torch.randn(DIM, DIM, device=dev, generator=g))
+    a = (x @ q).contiguous()
+    # noise 2.5 puts about half the rows' CSLS argmax off the diagonal
+    y = (a + 2.5 * torch.randn(n, DIM, device=dev, generator=g)).contiguous()
+    got = al.csls_argmax(a, y, block=RETRIEVAL_BLOCK)
+    plain = ck.cosine_matrix_plain(a, y)
+    r_a, r_b = ck.topk_means(plain, 10)
+    full = 2 * plain - r_a[:, None] - r_b[None, :]
+    want = full.argmax(1)
+    rows = torch.arange(n, device=dev)
+    differ = got != want
+    gap = (full[rows, got] - full[rows, want]).abs()
+    check(bool((gap[differ] <= 1e-5).all()), "blockwise CSLS argmax differs from the full "
+          f"plain matrix beyond near-ties (max gap {float(gap.max()):.3g})")
+    acc_block = float((got == rows).double().mean())
+    acc_full = float((want == rows).double().mean())
+    log(f"check blockwise CSLS retrieval n = m = {n}, d={DIM}, blocks of {RETRIEVAL_BLOCK}: "
+        f"{int(differ.sum())} argmaxes differ from the full plain matrix, all near-ties; "
+        f"accuracy {acc_block:.6f} vs {acc_full:.6f}")
+    return worst
+
+
+# ------------------------------------------------------------ phase 9
+def make_client_kg(np, seed, e, r, n):
+    """The client KG: Yago-sized, ``n`` uniform triples as its training
+    split (the handshake reads only its aligned rows and their neighbours)."""
+    from repro_torch.kge.data import KG
+
+    tri = draw_known(np, seed + 21, e, r, n)
+    kg = KG("yago-uniform", e, r, tri, np.arange(e))
+    kg.train, kg.valid, kg.test = tri, tri[:0], tri[:0]
+    return kg
+
+
+def backtrack_scores(torch, np, models, keval, trainer, pre):
+    """(accuracy, filtered Hit@10) of the host: the scheduler's default
+    backtrack score — best-threshold accuracy on the valid split against
+    fixed 1:1 negatives (``default_rng(0)``, 256 candidate thresholds) —
+    and filtered Hit@10 over ``pre`` through ``fused_ranks``."""
+    from repro_torch.kge.data import corrupt_triples
+
+    dev = trainer.params["ent"].device
+    va = trainer.kg.valid
+    neg = corrupt_triples(np.random.default_rng(0), va, trainer.model.num_entities)
+
+    def s(t):
+        t = torch.as_tensor(t.astype(np.int64), device=dev)
+        return models.score_triples(trainer.params, trainer.model, t[:, 0], t[:, 1],
+                                    t[:, 2]).cpu().numpy()
+
+    acc = keval.best_threshold_accuracy(s(va), s(neg), max_candidates=256)[1]
+    lp = keval.link_prediction(trainer.params, trainer.model, trainer.kg, precomputed=pre)
+    return acc, lp["hit@10"]
+
+
+def federate(torch, np, host, client, client_kg, idx_c, idx_h, cfg, gen, scores):
+    """One handshake in the order of the JAX package's ``federate_once``,
+    through the port's public functions: PPAT, generate and procrustes on
+    the padded aligned set, KGEmb update (average), virtual extension,
+    one retrain epoch, strip, backtrack score, accept or restore. Host-clock
+    seconds per stage, each ended by a synchronise."""
+    from repro_torch.core.aggregation import kgemb_update, virtual_extension
+    from repro_torch.core.alignment import csls_retrieval_acc, procrustes
+    from repro_torch.core.ppat import PPAT_BUCKET, _pad_rows, train_ppat
+
+    dev = host.params["ent"].device
+    secs = {}
+    t0 = [time.perf_counter()]
+
+    def lap(name):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        secs[name] = now - t0[0]
+        t0[0] = now
+
+    before = scores(host)
+    snap = host.snapshot()
+    x = client.get_entity_embeddings(idx_c)
+    y = host.get_entity_embeddings(idx_h)
+    n = x.shape[0]
+    lap("score_before")
+    acc_identity = csls_retrieval_acc(x, y)
+    lap("csls_identity")
+    ppat_client, ppat_host, hist = train_ppat(x, y, cfg, generator=gen)
+    lap("ppat")
+    synth = ppat_client.generate(_pad_rows(x, PPAT_BUCKET))
+    refine = procrustes(synth, _pad_rows(y, PPAT_BUCKET))
+    synth = synth @ refine
+    pad_zero = not bool(synth[n:].any())
+    lap("generate_procrustes")
+    acc_refined = csls_retrieval_acc(synth[:n], y)
+    lap("csls_refined")
+    kgemb_update(host, idx_h, synth[:n], mode="average")
+    lap("kgemb_update")
+    ve = virtual_extension(host, client, client_kg, idx_c, idx_h,
+                           lambda e: ppat_client.generate(e) @ refine)
+    extended = (host.params["ent"].shape[0], host.params["rel"].shape[0])
+    lap("virtual_extension")
+    loss = host.train_epochs(1)
+    lap("retrain")
+    host.strip_virtual()
+    after = scores(host)
+    lap("score_after")
+    accepted = after[0] > before[0]
+    retrained = host.snapshot()
+    if not accepted:
+        host.restore(snap)
+    lap("backtrack")
+    return dict(before=before, after=after, accepted=accepted, acc_identity=acc_identity,
+                acc_refined=acc_refined, hist=hist, ppat_host=ppat_host, pad_zero=pad_zero,
+                extended=extended, virtual=(ve.n_virtual_ent, ve.n_virtual_rel) if ve else None,
+                loss=loss, secs=secs, snapshot=snap, retrained=retrained, x=x, y=y,
+                synth=synth[:n])
+
+
+def handshake_path(torch, np, models, ops, sops, ck, tier, host, dev, args, sizes):
+    """The handshake at full width: a Yago-sized client against the trained
+    Dbpedia-sized host of phase 6 over 123,853 aligned entities."""
+    from repro_torch.core.alignment import AlignmentRegistry
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.core.privacy import MomentsAccountant
+    from repro_torch.kge import eval as keval
+    from repro_torch.kge.trainer import KGETrainer
+
+    e_c, r_c, n_c, n_al = sizes
+    t0 = time.perf_counter()
+    client_kg = make_client_kg(np, args.seed, e_c, r_c, n_c)
+    client = KGETrainer(client_kg, "transe", dim=DIM, seed=args.seed + 1, device=dev)
+    rng = np.random.default_rng(args.seed + 23)
+    reg = AlignmentRegistry()
+    reg.add_entities("yago", "dbpedia",
+                     np.sort(rng.choice(e_c, n_al, replace=False)),
+                     rng.choice(host.model.num_entities, n_al, replace=False))
+    idx_c, idx_h = reg.entities("yago", "dbpedia")
+    # plant the translation: the host's aligned rows are the client's rows
+    # turned by a seeded random orthogonal Q, plus 0.01·N(0, 1)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    q, _ = torch.linalg.qr(torch.randn(DIM, DIM, device=dev, generator=g))
+    xs = client.get_entity_embeddings(idx_c)
+    host.set_entity_embeddings(idx_h, xs @ q + 0.01 * torch.randn(xs.shape, device=dev,
+                                                                   generator=g))
+    pre = keval.build_score_inputs(host.kg, max_test=MAX_TEST)
+    shapes = {k: tuple(v.shape) for k, v in host.params.items()}
+    setup_s = time.perf_counter() - t0
+
+    # a version published before the handshake must answer as before after it
+    tv = tier.publish(host.params)
+    qt = host.kg.test[:16]
+    first = tier.submit_rank(qt[:, 0], qt[:, 1], qt[:, 2])
+    tier.run_until_drained()
+
+    cfg = PPATConfig()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+
+    def scores(tr):
+        return backtrack_scores(torch, np, models, keval, tr, pre)
+
+    for reset in (ops.reset_launches, sops.reset_launches, ck.reset_launches):
+        reset()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = federate(torch, np, host, client, client_kg, idx_c, idx_h, cfg, gen, scores)
+    wall_s = time.perf_counter() - t0
+    launches = {**ops.LAUNCHES, **sops.LAUNCHES, **ck.LAUNCHES}
+
+    hist = res["hist"]
+    eps = hist["epsilon"]
+    acct = MomentsAccountant(cfg.lam, cfg.delta)
+    acct.update(hist["n0"].ravel(), hist["n1"].ravel())
+    check(np.isfinite(eps) and eps > 0, f"epsilon {eps} is not finite and positive")
+    check(acct.epsilon() == eps and hist["n0"].shape == (cfg.steps, cfg.batch),
+          f"epsilon {eps} != the accountant recomputed from n0/n1 ({acct.epsilon()})")
+    if dev.type == "cuda":
+        for name in ("cosine_matrix", "sparse_sgd_step", "fused_ranks"):
+            check(launches[name] > 0, f"the handshake never launched {name}")
+    check(res["acc_identity"] < 0.01, f"CSLS retrieval with W = I reads {res['acc_identity']}")
+    check(res["acc_refined"] >= 0.9,
+          f"CSLS retrieval after PPAT + procrustes reads {res['acc_refined']} < 0.9")
+    check(res["pad_zero"], "the PPAT_BUCKET padding rows did not stay zero through generate")
+    check({k: tuple(v.shape) for k, v in host.params.items()} == shapes,
+          "the tables did not return to their pre-extension shapes")
+    want = res["retrained"] if res["accepted"] else res["snapshot"]
+    check(all(torch.equal(host.params[k], want[k]) for k in want),
+          "after the backtrack the tables are not the " +
+          ("retrained ones" if res["accepted"] else "snapshot, bit for bit"))
+    again = tier.submit_rank(qt[:, 0], qt[:, 1], qt[:, 2])
+    tier.run_until_drained()
+    check(first.version == again.version == tv.version and again.state == "served"
+          and np.array_equal(first.result, again.result),
+          "the version published before the handshake answered differently after it")
+
+    secs = res["secs"]
+    out = {"setup_s": setup_s, "wall_s": wall_s, "launches": launches, "epsilon": eps,
+           "max_alpha": hist["max_alpha"], "accepted": res["accepted"],
+           "before": res["before"], "after": res["after"],
+           "acc_identity": res["acc_identity"], "acc_refined": res["acc_refined"],
+           "extended": res["extended"], "virtual": res["virtual"], "loss": res["loss"],
+           "stage_s": secs, "gen_loss_last": hist["gen_loss"][-1],
+           "vote_mean": float(hist["n1"].mean() / cfg.num_teachers)}
+    log(f"handshake: client E={e_c} R={r_c} triples={n_c} (untrained), host E="
+        f"{host.model.num_entities} R={host.model.num_relations} (phase 6), {n_al} aligned, "
+        f"d={DIM}, PPAT {cfg.steps} rounds B={cfg.batch} T={cfg.num_teachers} "
+        f"hidden={cfg.hidden} on {dev}; set-up {setup_s:.2f}s")
+    log(f"handshake: epsilon {eps:.6f} (= the accountant over the returned n0/n1), CSLS "
+        f"retrieval {res['acc_identity']:.6f} with W = I, {res['acc_refined']:.6f} after "
+        f"PPAT + procrustes; virtual rows {res['virtual']} (tables {res['extended']}), "
+        f"retrain loss {res['loss']:.6f}")
+    log(f"handshake: backtrack accuracy {res['before'][0]:.6f} -> {res['after'][0]:.6f}, "
+        f"Hit@10 {res['before'][1]:.6f} -> {res['after'][1]:.6f}: "
+        f"{'accepted' if res['accepted'] else 'restored'}; tables bit-equal to the "
+        f"{'retrained' if res['accepted'] else 'snapshot'} ones; published version "
+        f"{tv.version} answered identically; launches {launches}")
+    log("handshake stages (host clock, s): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                         secs.items()) + f"; total {wall_s:.3f}")
+    return res, out, cfg, (client, client_kg, idx_c, idx_h, scores)
+
+
+def ppat_card_vs_cpu(torch, tp, x, y, dev, seed):
+    """``PPAT_CHECK_ROUNDS`` rounds of ``ppat_scan_graph`` on the card and on
+    the CPU from the same init and the same injected draws."""
+    cfg = tp.PPATConfig(steps=PPAT_CHECK_ROUNDS)
+    g = torch.Generator().manual_seed(seed + 37)
+    d, n = x.shape[1], x.shape[0]
+    init = tp._init_host_params(g, d, cfg)
+    draws = tp.draw_ppat(g, cfg, n, n)
+    out = {}
+    for where, xx, yy in (("cpu", x.cpu(), y.cpu()), ("cuda", x, y)):
+        hp = {k: {name: v.to(xx.device) for name, v in p.items()} for k, p in init.items()}
+        w = torch.eye(d, device=xx.device)
+        _, w, _, _, n0, n1 = tp.ppat_scan_graph(hp, w, torch.zeros_like(w), xx, yy, n, n, cfg,
+                                                draws=draws)
+        out[where] = (w.cpu(), n0.cpu(), n1.cpu())
+    votes_equal = torch.equal(out["cpu"][1], out["cuda"][1]) and \
+        torch.equal(out["cpu"][2], out["cuda"][2])
+    w_err = max_err(out["cuda"][0], out["cpu"][0])
+    check(votes_equal, f"{PPAT_CHECK_ROUNDS} PPAT rounds: vote counts differ card vs CPU")
+    check(w_err <= 1e-4, f"{PPAT_CHECK_ROUNDS} PPAT rounds: W differs by {w_err} > 1e-4")
+    log(f"check PPAT {PPAT_CHECK_ROUNDS} rounds on {dev} vs the CPU, same draws (n={n}, "
+        f"d={d}): n0/n1 equal, W max|err|={w_err:.3g} (atol 1e-4)")
+    return w_err
+
+
+# ------------------------------------------------------------ phase 10
+def csls_timings(torch, ck, al, x, y, card):
+    """The cosine kernel at one retrieval block: its output held against
+    the plain version, then kernel, plain and library times with the bound;
+    and the whole two-pass retrieval on the host clock."""
+    import torch.nn.functional as F
+
+    mem_rate, fp32_rate = peak_rates(card)
+    a, b = x[:RETRIEVAL_BLOCK].contiguous(), y.contiguous()
+    n, d = a.shape
+    m = b.shape[0]
+    got, want = ck.cosine_matrix(a, b), ck.cosine_matrix_plain(a, b)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    del got, want
+    log(f"check cosine at the timed shape ({n}, {m}, d={d}): max|err|={err:.3g} ok")
+    flops = 2 * n * m * d
+    nbytes = 4 * (n * d + m * d + n * m)
+    out = dict(
+        ms=time_ms(torch, lambda: ck.cosine_matrix(a, b), ITERS),
+        plain_ms=time_ms(torch, lambda: ck.cosine_matrix_plain(a, b), max(3, ITERS // 4)),
+        library_ms=time_ms(torch, lambda: F.normalize(a, dim=1) @ F.normalize(b, dim=1).T,
+                           ITERS),
+        bound_ms=1e3 * max(nbytes / mem_rate, flops / fp32_rate),
+        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        flops=flops, bytes=nbytes, max_abs_err=err,
+        shape=f"n={n} m={m} d={d}",
+    )
+    out["tflops"] = flops / out["ms"] / 1e9
+    log(f"time cosine_matrix [{out['shape']}]: kernel {out['ms']:.4f} ms "
+        f"({out['tflops']:.2f} TFLOP/s), plain {out['plain_ms']:.4f} ms, library "
+        f"(F.normalize @ .T, TF32 off) {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {flops:.3g} FLOP, {nbytes:.3g} B), "
+        f"{100 * out['bound_ms'] / out['ms']:.1f}% of bound; {card}")
+    runs = []
+    for _ in range(3):
+        ck.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc = al.csls_retrieval_acc(x, y)
+        runs.append(time.perf_counter() - t0)
+    out["retrieval_s"] = statistics.median(runs)
+    out["retrieval_launches"] = ck.LAUNCHES["cosine_matrix"]
+    out["retrieval_acc"] = acc
+    log(f"time CSLS retrieval over {x.shape[0]} x {y.shape[0]} (two passes, blocks of "
+        f"{RETRIEVAL_BLOCK}): {out['retrieval_s']:.4f} s host clock (median of 3), "
+        f"{out['retrieval_launches']} cosine launches, accuracy {acc:.6f}; {card}")
+    return out
+
+
+def profile_handshake(torch, np, host, ctx, cfg, seed, card):
+    """Device time by kernel and the device's idle share over a second,
+    whole handshake from the host's current tables (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    client, client_kg, idx_c, idx_h, scores = ctx
+    gen = torch.Generator(device=host.params["ent"].device).manual_seed(seed + 41)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = federate(torch, np, host, client, client_kg, idx_c, idx_h, cfg, gen,
+                       scores)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "idle_share": None if busy == 0 else 1 - busy / wall_us,
+           "stage_s": res["secs"],
+           "top": [(k[:90], v / 1e3) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])
+                   [:12]]}
+    if busy == 0:
+        log("profile handshake: the profiler saw no device activity; idle share not measured")
+    else:
+        log(f"profile handshake: {out['wall_ms']:.1f} ms wall (profiled), device busy "
+            f"{out['device_busy_ms']:.1f} ms, idle share {out['idle_share']:.3f}; {card}")
+        log("profile handshake stages (host clock, s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res["secs"].items()))
+        for name, ms in out["top"]:
+            log(f"profile handshake:   {ms:10.3f} ms  {100 * ms * 1e3 / busy:5.1f}%  {name}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -794,7 +1193,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(REPO / "build" / "chip_smoke.json"),
                     help="where to write the full results as JSON")
     ap.add_argument("--rehearse", action="store_true",
-                    help="run the serving phase at a tiny size on the CPU (plain versions "
+                    help="run the main paths at a tiny size on the CPU (plain versions "
                          "only) and exit non-zero: a check of the script, not of the card")
     args = ap.parse_args(argv)
 
@@ -810,7 +1209,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.core import alignment as al
+    from repro_torch.core import ppat as tp
     from repro_torch.kernels import _nvcc
+    from repro_torch.kernels.csls import ops as ck
     from repro_torch.kernels.sparse_update import ops as sops
     from repro_torch.kernels.triple_score import ops
     from repro_torch.kge import engine as kge_engine
@@ -824,7 +1226,9 @@ def main(argv=None) -> int:
         tier, m, versions, waves, res = serve(torch, np, models, serving, ops, dev, args, sizes)
         recheck_served(torch, np, models, ops, tier, m, versions, waves, dev)
         known = draw_known(np, args.seed, *sizes)
-        train_path(torch, np, models, ops, sops, tier, dev, args, known, sizes[:2])
+        trainer, _ = train_path(torch, np, models, ops, sops, tier, dev, args, known, sizes[:2])
+        handshake_path(torch, np, models, ops, sops, ck, tier, trainer, dev, args,
+                       (3_000, YAGO["relations"], 12_000, 1_000))
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -836,7 +1240,7 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    libraries = ops.LIBRARIES + sops.LIBRARIES
+    libraries = ops.LIBRARIES + sops.LIBRARIES + ck.LIBRARIES
     build_logs = _nvcc.build_all(libraries)
     build_s = time.perf_counter() - t0
     log(f"build: {len(libraries)} kernel libraries in {build_s:.2f}s")
@@ -861,10 +1265,26 @@ def main(argv=None) -> int:
     trainer, train = train_path(torch, np, models, ops, sops, tier, dev, args, known, (e, r))
     times["sparse_sgd_step"] = step_timings(torch, np, models, sops, trainer, dev, card)
     times["profile_train"] = profile_training(torch, kge_engine, trainer, card)
-    launches = {**res["launches"], "sparse_sgd_step": train["launches"]["sparse_sgd_step"]}
+
+    worst["cosine_matrix"] = cosine_vs_plain(torch, ck, al, dev, args.seed)
+    hs_res, hs, ppat_cfg, ctx = handshake_path(
+        torch, np, models, ops, sops, ck, tier, trainer, dev, args,
+        (YAGO["entities"], YAGO["relations"], YAGO["triples"], ALIGNED))
+    hs["ppat_card_vs_cpu_w_err"] = ppat_card_vs_cpu(torch, tp, hs_res["x"], hs_res["y"], dev,
+                                                    args.seed)
+    times["cosine_matrix"] = csls_timings(torch, ck, al, hs_res["synth"], hs_res["y"], card)
+    del hs_res
+    times["profile_handshake"] = profile_handshake(torch, np, trainer, ctx, ppat_cfg, args.seed,
+                                                   card)
+    # each kernel's launches over the main paths that run it: serving (phase
+    # 3), training (phase 6) and the handshake (phase 9)
+    launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
+                + hs["launches"].get(name, 0)
+                for name in ("pairwise_scores", "fused_ranks", "sparse_sgd_step",
+                             "cosine_matrix")}
 
     kernels = []
-    for name in ("pairwise_scores", "fused_ranks", "sparse_sgd_step"):
+    for name in ("pairwise_scores", "fused_ranks", "sparse_sgd_step", "cosine_matrix"):
         x = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -875,7 +1295,7 @@ def main(argv=None) -> int:
             "bound_by": x["bound_by"], "library_ms": x["library_ms"],
         })
     result = {"card": card, "build_s": build_s, "check_max_abs_err": worst, "serve": res,
-              "train": train, "timings": times, "kernels": kernels,
+              "train": train, "handshake": hs, "timings": times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     try:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -14,5 +14,21 @@ takes its plain PyTorch version, which is what the CPU tests exercise.
 Ported so far: ``serving.KGEServingTier`` answers filtered-rank and top-k
 queries through the two ``triple_score`` kernels; ``kge.KGETrainer`` trains
 locally through the ``sparse_update`` kernel, and ``kge.link_prediction`` /
-``kge.triple_classification_accuracy`` score the trained tables.
+``kge.triple_classification_accuracy`` score the trained tables; ``core``
+runs the PPAT handshake (``train_ppat`` with PATE votes and the moments
+accountant), its CSLS quality metric through the ``csls`` cosine kernel,
+and the KGEmb update with the virtual extension.
 """
+from repro_torch.core import (  # noqa: F401
+    AlignmentRegistry,
+    MomentsAccountant,
+    PPATClient,
+    PPATConfig,
+    PPATHost,
+    csls,
+    kgemb_update,
+    pate_vote,
+    teacher_votes,
+    train_ppat,
+    virtual_extension,
+)

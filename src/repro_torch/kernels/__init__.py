@@ -7,3 +7,4 @@
 #
 #   triple_score  — pairwise (B, E) scores and the filtered fused-rank count
 #   sparse_update — the fused margin-SGD step, in place on {ent, rel}
+#   csls          — the cosine matrix behind CSLS, rows normalised in the tile

@@ -60,3 +60,42 @@ def jax_draws(key, epochs: int, n_pad: int, nb: int, batch: int, num_entities: i
                                           dtype=jnp.int32)),
         ))
     return out
+
+
+
+def jax_ppat_init(key, dim: int, cfg):
+    """The discriminators a fused JAX handshake on ``key`` starts from
+    (``_init_host_params(split(key)[0], ...)``), every leaf as numpy: what
+    the port's ``host_params_from_numpy`` carries across."""
+    from repro.core.ppat import _init_host_params
+
+    kh, _ = jax.random.split(key)
+    return jax.tree.map(np.asarray, _init_host_params(kh, dim, cfg))
+
+
+def jax_ppat_draws(key, cfg, n_x: int, n_y: int):
+    """A fused handshake's per-round draws exactly as the JAX package's
+    ``core.ppat.ppat_entry_graph`` takes them from ``key``: (idx (steps, B),
+    ridx (steps, B), noise (steps, 2, B)) as numpy. The rounds come from
+    ``split(key)[1]``, split once per round, each round into (client batch
+    ids, host batch ids, vote noise)."""
+    import jax.numpy as jnp
+
+    _, sub = jax.random.split(key)
+    idx, ridx, noise = [], [], []
+    for k in jax.random.split(sub, cfg.steps):
+        kx, ky, ks = jax.random.split(k, 3)
+        idx.append(np.array(jax.random.randint(kx, (cfg.batch,), 0, jnp.int32(n_x))))
+        ridx.append(np.array(jax.random.randint(ky, (cfg.batch,), 0, jnp.int32(n_y))))
+        noise.append(np.array(jax.random.laplace(ks, (2, cfg.batch))))
+    return np.stack(idx), np.stack(ridx), np.stack(noise)
+
+
+def jax_stepwise_noise(key, cfg):
+    """The vote noise (steps, 2, B) of the JAX package's stepwise
+    ``train_ppat(fused=False)`` on ``key``: one ``split`` per round."""
+    out = []
+    for _ in range(cfg.steps):
+        key, sub = jax.random.split(key)
+        out.append(np.array(jax.random.laplace(sub, (2, cfg.batch))))
+    return np.stack(out)

@@ -16,6 +16,11 @@ The sparse SGD step agrees with its plain version within atol 1e-6 after one
 step and 1e-5 after 64 (loss rtol 1e-6); on dyadic tables it is bit-equal
 to the plain version on the CPU (which sums in the kernel's order), and two
 runs of the kernel are always bit-equal.
+
+The cosine kernel agrees with its plain version within atol 1e-5 (zero rows
+give exactly 0); blockwise CSLS argmaxes equal the full matrix's up to
+near-ties (1e-5). Sixteen PPAT rounds on the card give the CPU's vote counts
+and W within 1e-4.
 """
 import numpy as np
 import pytest
@@ -278,3 +283,94 @@ def test_trainer_on_the_card_equals_the_cpu_trainer(cuda_dev, family, norm_ord, 
     for k in start:
         torch.testing.assert_close(trainers[0].params[k].cpu(), trainers[1].params[k],
                                    atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------------ csls
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [(1000, 777, 100), (129, 4097, 33), (128, 128, 16),
+                                   (1, 1, 1), (300, 5, 200), (257, 130, 100)])
+def test_cosine_kernel_matches_plain(cuda_dev, n, m, d):
+    """Ragged n, m and d (none a multiple of the 128-row tile or the 16-wide
+    d-chunk in most cases) with a zero row on each side: atol 1e-5, and the
+    zero rows' cosines exactly 0."""
+    from repro_torch.kernels import csls as ck
+
+    g = torch.Generator(device=cuda_dev).manual_seed(n * m + d)
+    a = torch.randn(n, d, device=cuda_dev, generator=g)
+    b = torch.randn(m, d, device=cuda_dev, generator=g)
+    a[n // 2] = 0.0
+    b[m - 1] = 0.0
+    before = ck.LAUNCHES["cosine_matrix"]
+    got = ck.cosine_matrix(a, b)
+    want = ck.cosine_matrix_plain(a, b)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["cosine_matrix"] == before + 1
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert not bool(got[n // 2].any()) and not bool(got[:, m - 1].any())
+    # CSLS adds 2·cos (2e-5) and two top-k means (1e-5 each)
+    r_a, r_b = ck.topk_means(want, 10)
+    torch.testing.assert_close(ck.csls_matrix(a, b), 2 * want - r_a[:, None] - r_b[None, :],
+                               atol=4e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cosine_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev):
+    from repro_torch.kernels import csls as ck
+
+    a = torch.zeros(4, 8, device=cuda_dev)
+    with pytest.raises(TypeError):
+        ck.cosine_matrix(a.double(), a.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.cosine_matrix(a, torch.zeros(8, 4, device=cuda_dev).T)
+    with pytest.raises(ValueError, match="different devices"):
+        ck.cosine_matrix(a, a.cpu())
+    with pytest.raises(ValueError, match="expected a"):
+        ck.cosine_matrix(a, a[:, :3].contiguous())
+
+
+@pytest.mark.cuda
+def test_blockwise_retrieval_on_the_card(cuda_dev):
+    """``csls_argmax`` through the kernel, in 512-row blocks, against the
+    materialized plain CSLS matrix: argmaxes equal up to near-ties."""
+    from repro_torch.core.alignment import csls_argmax, csls_retrieval_acc
+    from repro_torch.kernels import csls as ck
+
+    g = torch.Generator(device=cuda_dev).manual_seed(1)
+    x = torch.randn(3000, 64, device=cuda_dev, generator=g)
+    q, _ = torch.linalg.qr(torch.randn(64, 64, device=cuda_dev, generator=g))
+    y = x @ q + 0.5 * torch.randn(3000, 64, device=cuda_dev, generator=g)
+    a = (x @ q).contiguous()
+    before = ck.LAUNCHES["cosine_matrix"]
+    got = csls_argmax(a, y, block=512)
+    assert ck.LAUNCHES["cosine_matrix"] == before + 2 * 6
+    full = ck.csls_matrix_ref(a, y)
+    want = full.argmax(1)
+    rows = torch.arange(3000, device=cuda_dev)
+    gap = (full[rows, got] - full[rows, want]).abs()
+    assert bool((gap[got != want] <= 1e-5).all())
+    assert csls_retrieval_acc(a, y, block=512) > 0.9
+
+
+@pytest.mark.cuda
+def test_ppat_on_the_card_equals_the_cpu(cuda_dev):
+    """16 rounds of ``ppat_scan_graph`` on the card and on the CPU from the
+    same init and draws: equal vote counts, W within 1e-4."""
+    from repro_torch.core import ppat as tp
+
+    cfg = tp.PPATConfig(steps=16)
+    d, n = 100, 5000
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(n, d, generator=g)
+    y = torch.randn(n, d, generator=g)
+    init = tp._init_host_params(g, d, cfg)
+    draws = tp.draw_ppat(g, cfg, n, n)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_dev):
+        hp = {k: {n_: v.to(dev) for n_, v in p.items()} for k, p in init.items()}
+        w = torch.eye(d, device=dev)
+        _, w, _, _, n0, n1 = tp.ppat_scan_graph(hp, w, torch.zeros_like(w), x.to(dev),
+                                                y.to(dev), n, n, cfg, draws=draws)
+        out[dev.type] = (w.cpu(), n0.cpu(), n1.cpu())
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
+    assert torch.equal(out["cpu"][2], out["cuda"][2])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)

@@ -37,9 +37,14 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/triple_score/ops.py",
                  "src/repro_torch/kge/engine.py", "src/repro_torch/kge/trainer.py",
                  "src/repro_torch/kernels/sparse_update/ops.py",
-                 "src/repro_torch/kernels/sparse_update/ref.py"):
+                 "src/repro_torch/kernels/sparse_update/ref.py",
+                 "src/repro_torch/core/privacy.py", "src/repro_torch/core/pate.py",
+                 "src/repro_torch/core/ppat.py", "src/repro_torch/core/alignment.py",
+                 "src/repro_torch/core/aggregation.py",
+                 "src/repro_torch/kernels/csls/ops.py", "src/repro_torch/kernels/csls/ref.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
+    assert (REPO / "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu").is_file()
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -81,6 +86,13 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         KGETrainer(kg, dim=4, device="cuda:0")
     assert resolve_device("cpu") == torch.device("cpu")
+    from repro_torch.core.ppat import PPATConfig, host_params_from_numpy, train_ppat
+
+    x = np.zeros((8, 4), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_ppat(x, x, PPATConfig(steps=1, hidden=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        host_params_from_numpy({"student": {"w1": x}})
 
 
 def test_kernel_build_is_lazy():
@@ -91,15 +103,19 @@ def test_kernel_build_is_lazy():
         "import repro_torch.kge.trainer\n"
         "from repro_torch.kernels.triple_score import ops\n"
         "from repro_torch.kernels.sparse_update import ops as sops\n"
-        "assert all(lib._lib is None for lib in ops.LIBRARIES + sops.LIBRARIES)\n"
+        "from repro_torch.kernels.csls import ops as cops\n"
+        "import repro_torch.core.ppat, repro_torch.core.aggregation\n"
+        "assert all(lib._lib is None for lib in ops.LIBRARIES + sops.LIBRARIES"
+        " + cops.LIBRARIES)\n"
         "assert 'jax' not in sys.modules and 'triton' not in sys.modules\n"
         "print(ops.PAIRWISE_LIB.path.name, ops.FUSED_RANKS_LIB.path.name,"
-        " sops.STEP_LIB.path.name)\n"
+        " sops.STEP_LIB.path.name, cops.COSINE_LIB.path.name)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120)
     assert out.returncode == 0, out.stderr
-    pair, fused, step = out.stdout.split()
+    pair, fused, step, cos = out.stdout.split()
+    assert cos.startswith("libcsls_cosine-") and cos.endswith(".so")
     assert step.startswith("libsparse_update_step-") and step.endswith(".so")
     assert pair.startswith("libtriple_score_pairwise-") and pair.endswith(".so")
     assert fused.startswith("libtriple_score_fused_ranks-")
