@@ -4,15 +4,18 @@ each against its plain PyTorch version, serves filtered-rank and top-k
 traffic at full width through ``repro_torch.serving.KGEServingTier``, trains
 one full-width epoch through ``repro_torch.kge.trainer.KGETrainer`` and
 scores it, runs one full-width PPAT handshake with its KGEmb update,
-retrain and backtrack through ``repro_torch.core``, and times the kernels.
+retrain and backtrack through ``repro_torch.core``, serves qwen3-0.6b and
+mamba2-2.7b at full width through ``repro_torch.serving.ServingEngine``, and
+times the kernels.
 
-    python3 chip_smoke.py            # one CUDA card; a minute or two on an H100
+    python3 chip_smoke.py            # one CUDA card; about five minutes on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
-1. the card (``nvidia-smi``: name, power limit), then the four kernel
+1. the card (``nvidia-smi``: name, power limit), then the six kernel
    libraries (``triple_score``: pairwise scores and fused ranks;
-   ``sparse_update``: the SGD step; ``csls``: the cosine matrix) built from
+   ``sparse_update``: the SGD step; ``csls``: the cosine matrix;
+   ``flash_attention``; ``ssd_scan``: the SSD chunks) built from
    the ``csrc`` directories under
    ``src/repro_torch/kernels``, one ``nvcc`` each, all started together;
 2. kernel vs plain version on the card, for the four score modes through the
@@ -84,16 +87,46 @@ Phases (every failed check ends the run with a non-zero exit):
    bound; the whole retrieval on the host clock with its launches; and a
    ``torch.profiler`` trace of a second handshake: device time by kernel and
    the device's idle share.
+11. flash attention against its plain version (dense masked softmax) at
+   qwen3-0.6b's prefill (B = 1, S = 2,048, H = 16, KV = 8, Dh = 128,
+   causal), at ragged S = 333, a window of 64, non-causal, GQA 4:1, Dh 64 and
+   32, and bf16 (atol = rtol = 1e-5 at fp32; at bf16, where both round the
+   same fp32 result, one bf16 ulp: rtol = 2**-7, atol = 1e-5); the SSD chunk
+   kernel against its plain version at mamba2-2.7b's prefill (S = 2,048,
+   H = 80, P = 64, N = 128, Q = 256) with ``Mamba2Mixer``'s A and dt laws
+   (all three outputs, and the whole SSD with and without an initial state,
+   each within 1e-5 of the plain output's largest magnitude);
+12. LM serving at full width, fp32, random weights from ``--seed``:
+   qwen3-0.6b (28 layers, 0.596 B parameters) through
+   ``ServingEngine(max_batch=8, max_len=4096)``, 16 requests with
+   ``SyntheticTextDataset`` prompts of 128-2,048 tokens (the first no
+   multiple of 64), 32 new tokens each; mamba2-2.7b (64 layers, 2.70 B)
+   with 4 slots, 8 requests of 256-2,048 tokens (the first no multiple of
+   the 256-token chunk). The kernel's counter is zeroed just before the
+   engine and must read requests x layers after; every request is answered,
+   its tokens equal a batch-1 ``prefill`` + ``decode_step`` run of its prompt
+   alone, and its first token the plain-kernel prefill's, up to near-ties
+   (logits within 1e-3), with max|dlogit| reported;
+13. per card, a ``launch/serve.py``-style batched run (batch 4, prompt
+   2,048, 32 tokens): prefill tokens/s and decode ms per token; and a
+   ``torch.profiler`` trace of a burst of one request per slot: the
+   device's idle share;
+14. timings of both kernels at the shapes of phase 11's first cases
+   (kernel, plain, and for attention the library yardstick
+   ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
+   timed only) with their bounds.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6 and 9 at a tiny size on the CPU with the
-plain versions (no kernels, no timings) and also exits non-zero.
+``--rehearse`` runs phases 3, 6, 9, 12 and 13 at a tiny size (the LM cards
+reduced) on the CPU with the plain versions (no kernels, no timings) and
+also exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -122,12 +155,18 @@ REPLACES = {
     "fused_ranks": "src/repro/kernels/triple_score/triple_score.py:157",
     "sparse_sgd_step": "src/repro/kernels/sparse_update/sparse_update.py:179",
     "cosine_matrix": "src/repro/kernels/csls/csls.py:39",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:107",
+    "ssd_chunks": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
 }
+KERNELS = ("pairwise_scores", "fused_ranks", "sparse_sgd_step", "cosine_matrix",
+           "flash_attention", "ssd_chunks")
 SOURCES = {
     "pairwise_scores": "src/repro_torch/kernels/triple_score/csrc/pairwise_scores.cu",
     "fused_ranks": "src/repro_torch/kernels/triple_score/csrc/fused_ranks.cu",
     "sparse_sgd_step": "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu",
     "cosine_matrix": "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu",
+    "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "ssd_chunks": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunks.cu",
 }
 TRAIN_BATCH = 100    # ``KGETrainer``'s default batch
 TRAIN_LR = 0.5       # ``KGETrainer``'s default learning rate
@@ -141,6 +180,23 @@ ALIGNED = 123_853
 RETRIEVAL_BLOCK = 4096   # ``core/alignment.py``'s rows per cosine launch
 CHECK_RETRIEVAL = 8192   # n = m of the blockwise-vs-full retrieval check
 PPAT_CHECK_ROUNDS = 16   # PPAT rounds held card vs CPU
+#: flash-attention checks (B, H, KV, S, Dh, causal, window, dtype): qwen3-0.6b's
+#: prefill at 2,048 tokens, then ragged S, a window, non-causal, GQA 4:1, bf16
+FLASH_CHECKS = [(1, 16, 8, 2048, 128, True, 0, "fp32"), (2, 16, 8, 333, 128, True, 0, "fp32"),
+                (1, 4, 4, 333, 64, False, 64, "fp32"), (1, 16, 4, 1000, 64, True, 0, "fp32"),
+                (1, 8, 2, 500, 32, True, 64, "fp32"), (1, 16, 8, 2048, 128, True, 0, "bf16"),
+                (2, 16, 4, 333, 64, True, 64, "bf16")]
+#: one bf16 ulp relative to the value (2**-8 to 2**-7 of it): kernel and plain
+#: version round the same fp32 result to bf16, so they differ by at most this
+BF16_ULP = 2.0 ** -7
+FLASH_SHAPE = (1, 2048, 16, 8, 128)        # B, S, H, KV, Dh: qwen3-0.6b's prefill
+SSD_SHAPE = (1, 2048, 80, 64, 128, 256)    # B, S, H, P, N, Q: mamba2-2.7b's prefill
+#: LM serving plans: (slots, requests, shortest and longest prompt, max_len, new tokens)
+LM_PLANS = {"qwen3-0.6b": (8, 16, 128, 2048, 4096, 32),
+            "mamba2-2.7b": (4, 8, 256, 2048, 4096, 32)}
+LM_REHEARSE_PLAN = (2, 4, 8, 90, 256, 6)
+SERVE_GEN = 32           # tokens per sequence of the ``launch/serve.py`` run
+LM_TIE_TOL = 1e-3        # near-tie rule for greedy tokens: logits within this
 
 
 class SmokeFailure(RuntimeError):
@@ -1186,6 +1242,352 @@ def profile_handshake(torch, np, host, ctx, cfg, seed, card):
     return out
 
 
+# ------------------------------------------------------------ phases 11-14
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the LM's two kernel wrappers to their plain versions (for the
+    checks that hold a kernel path against its plain path on the card)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops_
+
+    saved = fops.flash_attention, sops_.ssd_chunks
+    before = dict(fops.LAUNCHES), dict(sops_.LAUNCHES)
+    fops.flash_attention = fops.attention_ref
+    sops_.ssd_chunks = sops_.ssd_chunks_plain
+    try:
+        yield
+        check((dict(fops.LAUNCHES), dict(sops_.LAUNCHES)) == before,
+              "a kernel launched inside plain_kernels(): the plain path did not run")
+    finally:
+        fops.flash_attention, sops_.ssd_chunks = saved
+
+
+def rel_err(got, want):
+    """max|got − want| over max|want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def ssd_inputs(torch, g, dev, b, s, h, p, n):
+    """SSD inputs with ``Mamba2Mixer``'s laws: A = −(1..H); dt = softplus(
+    N(0, 1) + softplus⁻¹(dt_init)), log dt_init uniform on [log 1e-3, log 0.1]."""
+    import math
+
+    x = torch.randn(b, s, h, p, device=dev, generator=g)
+    u = torch.rand(h, device=dev, generator=g)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=dev, generator=g)
+                                      + torch.log(torch.expm1(dt_init)))
+    a = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+    bm = torch.randn(b, s, 1, n, device=dev, generator=g)
+    cm = torch.randn(b, s, 1, n, device=dev, generator=g)
+    s0 = torch.randn(b, h, p, n, device=dev, generator=g)
+    return x, dt, a, bm, cm, s0
+
+
+def chunk_views(x, dt, bm, cm, chunk):
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    nc = s // chunk
+    return (x.reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4),
+            dt.reshape(b, nc, chunk, h).permute(0, 3, 1, 2),
+            bm.reshape(b, nc, chunk, n), cm.reshape(b, nc, chunk, n))
+
+
+def lm_kernels_vs_plain(torch, fa, ks, dev, seed):
+    """Phase 11: flash attention and the SSD chunk kernel against their plain
+    versions on the card at the main path's shapes and at ragged ones."""
+    worst = {"flash_attention": 0.0, "ssd_chunks": 0.0}
+    g = torch.Generator(device=dev).manual_seed(seed + 51)
+    for b, h, kv, s, dh, causal, window, dname in FLASH_CHECKS:
+        dtype = torch.float32 if dname == "fp32" else torch.bfloat16
+        q = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
+        k = torch.randn(b, s, kv, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
+        v = torch.randn(b, s, kv, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, BF16_ULP)
+        err = max_err(got.float(), want.float())
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+        if dtype == torch.float32:
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+        log(f"check flash_attention B={b} H={h} KV={kv} S={s} Dh={dh} causal={causal} "
+            f"window={window} {dname}: max|err|={err:.3g} (atol {atol}, rtol {rtol:.3g}) ok")
+    b, s, h, p, n, q = SSD_SHAPE
+    x, dt, a, bm, cm, s0 = ssd_inputs(torch, g, dev, b, s, h, p, n)
+    views = chunk_views(x, dt, bm, cm, q)
+    got = ks.ssd_chunks(views[0], views[1], a, views[2], views[3])
+    want = ks.ssd_chunks_plain(views[0], views[1], a, views[2], views[3])
+    torch.cuda.synchronize()
+    for name, gt, wt in zip(("y_intra", "chunk_state", "decay"), got, want):
+        rel = rel_err(gt, wt)
+        check(rel <= 1e-5, f"ssd_chunks {name}: max|err| / max|plain| = {rel:.3g} > 1e-5")
+        worst["ssd_chunks"] = max(worst["ssd_chunks"], max_err(gt, wt))
+        log(f"check ssd_chunks {name} S={s} H={h} P={p} N={n} Q={q}: max|err|="
+            f"{max_err(gt, wt):.3g}, {rel:.3g} of max|plain| {float(wt.abs().max()):.4g} "
+            f"(tol 1e-5 of it) ok")
+    cum = ks.ops.sequential_cumsum(views[1] * a.reshape(1, -1, 1, 1))
+    log(f"ssd inputs: cum reaches {float(cum.min()):.1f} within a chunk (A = -1..-{h})")
+    for state in (None, s0):
+        y, fin = ks.ssd_chunk_kernel_apply(x, dt, a, bm, cm, chunk=q, state=state)
+        with plain_kernels():
+            yp, fp = ks.ssd_chunk_kernel_apply(x, dt, a, bm, cm, chunk=q, state=state)
+        torch.cuda.synchronize()
+        ry, rf = rel_err(y, yp), rel_err(fin, fp)
+        check(ry <= 1e-5 and rf <= 1e-5, f"ssd apply (state {state is not None}): "
+              f"y {ry:.3g}, final state {rf:.3g} of max|plain| > 1e-5")
+        log(f"check ssd_chunk_kernel_apply {'with' if state is not None else 'without'} an "
+            f"initial state: y {ry:.3g}, final state {rf:.3g} of max|plain| (tol 1e-5) ok")
+    return worst
+
+
+def lm_prompts(np, ds, rng, n, lo, hi, multiple):
+    """``n`` prompts from ``ds`` with lengths drawn from [lo, hi]; the first
+    is made no multiple of ``multiple``."""
+    lens = rng.integers(lo, hi + 1, n)
+    if lens[0] % multiple == 0:
+        lens[0] -= 1
+    return [ds.tokens(int(m), seed=1000 + i) for i, m in enumerate(lens)]
+
+
+def batch1_greedy(torch, model, prompt, n):
+    """Greedy tokens of one prompt alone through ``prefill`` +
+    ``decode_step``, with the logits each was picked from (on the host)."""
+    dev = model.device
+    cache = model.init_cache(1, len(prompt) + n)
+    logits = model.prefill(torch.as_tensor(prompt[None], device=dev).long(), cache)
+    toks, rows = [], []
+    for i in range(n):
+        row = logits[0, -1]
+        toks.append(int(torch.argmax(row)))
+        rows.append(row)
+        if i + 1 < n:
+            logits = model.decode_step(torch.tensor([[toks[-1]]], device=dev), cache,
+                                       len(prompt) + i)
+    return toks, torch.stack(rows).cpu()
+
+
+def near_tie_match(got, want, logits, tol):
+    """Equal up to the first difference, where the reference logits of the
+    two tokens lie within ``tol``; → 1 if they differ there, else 0."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            gap = abs(float(logits[i, a]) - float(logits[i, b]))
+            check(gap <= tol, f"token {i}: {a} vs {b}, logit gap {gap:.3g} > {tol}")
+            return 1
+    check(len(got) == len(want), f"{len(got)} tokens, not {len(want)}")
+    return 0
+
+
+def profile_window(torch, fn):
+    """(wall ms, device busy ms, idle share, top kernels) of ``fn`` under
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": None if busy == 0 else 1 - busy / wall_us,
+            "top": [(k[:90], v / 1e3) for k, v in sorted(by_name.items(),
+                                                         key=lambda kv: -kv[1])[:8]]}
+
+
+def lm_serve(torch, np, arch, dev, args, card, counter, plan):
+    """Phases 12-13 for one card: ``ServingEngine`` at full width over ragged
+    prompts, every request held against a batch-1 run and its first token
+    against the plain-kernel prefill; a ``launch/serve.py``-style batched
+    run; a profiled burst."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config(arch)
+    if args.rehearse:
+        cfg = reduced(cfg)
+    cfg = cfg.replace(dtype="float32")
+    slots, n_req, lo, hi, max_len, new = plan
+    kernel_lib, kernel = counter
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ds = SyntheticTextDataset(vocab_size=cfg.vocab_size, seed=args.seed)
+    rng = np.random.default_rng(args.seed + 61)
+    multiple = cfg.ssm.chunk_size if cfg.ssm.enabled else 64
+    prompts = lm_prompts(np, ds, rng, n_req, lo, hi, multiple)
+    log(f"lm {arch}: {cfg.num_layers} layers, d={cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"parameters at fp32 on {dev} (drawn in {init_s:.2f}s); {n_req} requests, prompts "
+        f"{sorted(len(p) for p in prompts)}, {new} new tokens each, {slots} slots, "
+        f"max_len {max_len}")
+
+    eng = ServingEngine(model, cfg, max_batch=slots, max_len=max_len, device=dev)
+    kernel_lib.reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=new)
+    done = eng.run_until_drained()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernel_lib.LAUNCHES[kernel]
+    check(len(done) == n_req and all(r.done and len(r.generated) == new for r in done),
+          f"lm {arch}: served {len(done)} of {n_req} submitted")
+    if dev.type == "cuda":
+        check(launches == n_req * cfg.num_layers,
+              f"lm {arch}: {kernel} launched {launches} times, not {n_req} x {cfg.num_layers}")
+    lat = sorted(r.finished_at - r.submitted_at for r in done)
+    res = {"arch": arch, "params": n_params, "requests": n_req, "served": len(done),
+           "prompt_lens": [len(p) for p in prompts], "new_tokens": new, "slots": slots,
+           "wall_s": wall_s, "launches": {kernel: launches},
+           "generated_tokens_per_s": n_req * new / wall_s,
+           "p50_ms": 1e3 * lat[len(lat) // 2],
+           "p99_ms": 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+    log(f"lm {arch}: served {len(done)}/{n_req} in {wall_s:.3f}s host clock, "
+        f"{res['generated_tokens_per_s']:.1f} generated tokens/s, latency p50 "
+        f"{res['p50_ms']:.1f} ms p99 {res['p99_ms']:.1f} ms; {kernel} launches {launches}; "
+        f"{card}")
+
+    diverged, first_err, prefill_s = 0, 0.0, []
+    for r in sorted(done, key=lambda r: r.rid):
+        prompt = prompts[r.rid]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = batch1_greedy(torch, model, prompt, new)
+        diverged += near_tie_match(r.generated, toks, logits, LM_TIE_TOL)
+        with plain_kernels():
+            plain = model.prefill(torch.as_tensor(prompt[None], device=dev).long(),
+                                  model.init_cache(1, len(prompt) + 1))[0, -1].cpu()
+        first_err = max(first_err, float((plain - logits[0]).abs().max()))
+        near_tie_match([toks[0]], [int(torch.argmax(plain))], plain[None], LM_TIE_TOL)
+    check(first_err <= LM_TIE_TOL, f"lm {arch}: kernel prefill logits differ from the "
+          f"plain prefill's by {first_err:.3g} > {LM_TIE_TOL}")
+    res.update(batch1_diverged_at_near_tie=diverged, first_token_max_dlogit=first_err)
+    log(f"check lm {arch}: every request's {new} tokens equal its batch-1 prefill + "
+        f"decode_step run ({diverged} differ only after a near-tie, tol {LM_TIE_TOL}); first "
+        f"tokens equal the plain-kernel prefill's, max|dlogit| {first_err:.3g}")
+
+    # a launch/serve.py-style batched run: batch 4, prompt 2048 (rehearsal: 64)
+    plen = 2048 if not args.rehearse else 64
+    batch = np.stack([ds.tokens(plen, seed=s) for s in range(4)])
+    lserve.generate(model, batch[:, :16], 2)  # warm-up: cuBLAS handles, allocator
+    kernel_lib.reset_launches()
+    gen_tokens, t = lserve.generate(model, batch, SERVE_GEN)
+    res["serve_batch"] = {"batch": 4, "prompt": plen, "gen": SERVE_GEN,
+                          "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+                          "prefill_tokens_per_s": 4 * plen / t["prefill_s"],
+                          "decode_ms_per_token": 1e3 * t["decode_s"] / (SERVE_GEN - 1),
+                          "launches": {kernel: kernel_lib.LAUNCHES[kernel]}}
+    check(gen_tokens.shape == (4, SERVE_GEN) and bool((gen_tokens >= 0).all()
+                                                      and (gen_tokens < cfg.padded_vocab).all()),
+          f"lm {arch}: launch.serve gave tokens of shape {gen_tokens.shape}")
+    sb = res["serve_batch"]
+    log(f"lm {arch} launch.serve: batch 4 x prompt {plen}: prefill {1e3 * sb['prefill_s']:.1f} "
+        f"ms ({sb['prefill_tokens_per_s']:.0f} tokens/s), decode {sb['decode_ms_per_token']:.2f} "
+        f"ms per token (batch 4, {SERVE_GEN} tokens); {kernel} launches {sb['launches'][kernel]}; "
+        f"{card}")
+
+    if dev.type == "cuda":  # a profiled burst: one request per slot
+        def burst():
+            e = ServingEngine(model, cfg, max_batch=slots, max_len=max_len, device=dev)
+            for p in prompts[:slots]:
+                e.submit(p, max_new_tokens=new)
+            e.run_until_drained()
+
+        prof = profile_window(torch, burst)
+        res["profile"] = prof
+        if prof["idle_share"] is None:
+            log(f"profile lm {arch}: the profiler saw no device activity; idle share not "
+                f"measured")
+        else:
+            log(f"profile lm {arch}: burst of {slots} requests x {new} tokens in "
+                f"{prof['wall_ms']:.1f} ms, device busy {prof['device_busy_ms']:.1f} ms, idle "
+                f"share {prof['idle_share']:.3f}; {card}")
+            for name, ms in prof["top"]:
+                log(f"profile lm {arch}:   {ms:9.3f} ms  "
+                    f"{100 * ms / prof['device_busy_ms']:5.1f}%  {name}")
+    del eng, model
+    return res
+
+
+def lm_timings(torch, fa, ks, dev, card):
+    """Phase 14: kernel, plain and library times at the main path's shapes,
+    with the bound."""
+    import torch.nn.functional as F
+
+    mem_rate, fp32_rate = peak_rates(card)
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(71)
+    b, s, h, kv, dh = FLASH_SHAPE
+    q = torch.randn(b, s, h, dh, device=dev, generator=g).transpose(1, 2)
+    k = torch.randn(b, s, kv, dh, device=dev, generator=g).transpose(1, 2)
+    v = torch.randn(b, s, kv, dh, device=dev, generator=g).transpose(1, 2)
+    got, want = fa.flash_attention(q, k, v), fa.attention_ref(q, k, v)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    err = max_err(got, want)
+    del got, want
+    pairs = h * s * (s + 1) // 2            # visible (query, key) pairs, causal
+    flops = 4 * dh * pairs * b              # q.k and p.v, two FLOP per multiply-add
+    nbytes = 4 * (2 * b * h * s * dh + 2 * b * kv * s * dh)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+
+    out["flash_attention"] = dict(
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), ITERS),
+        plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v), ITERS),
+        library_ms=time_ms(torch, sdpa, ITERS),
+        bound_ms=1e3 * max(nbytes / mem_rate, flops / fp32_rate),
+        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        flops=flops, bytes=nbytes, max_abs_err=err,
+        shape=f"B={b} S={s} H={h} KV={kv} Dh={dh} causal fp32")
+    b, s, h, p, n, qn = SSD_SHAPE
+    x, dt, a, bm, cm, _ = ssd_inputs(torch, g, dev, b, s, h, p, n)
+    views = chunk_views(x, dt, bm, cm, qn)
+    args_ = (views[0], views[1], a, views[2], views[3])
+    err = max(max_err(gt, wt) for gt, wt in zip(ks.ssd_chunks(*args_),
+                                                 ks.ssd_chunks_plain(*args_)))
+    nc = s // qn
+    tri = qn * (qn + 1) // 2
+    # the least work: C.B^T once per chunk (one group), the triangle only
+    flops = 2 * b * nc * (tri * n + h * (tri * p + qn * p * n))
+    nbytes = 4 * (b * s * h * p + b * s * h + h + 2 * b * s * n       # x, dt, a, B, C
+                  + b * s * h * p + b * h * nc * p * n + b * s * h)    # y, states, decay
+    out["ssd_chunks"] = dict(
+        ms=time_ms(torch, lambda: ks.ssd_chunks(*args_), ITERS),
+        plain_ms=time_ms(torch, lambda: ks.ssd_chunks_plain(*args_), max(3, ITERS // 4)),
+        library_ms=None,
+        bound_ms=1e3 * max(nbytes / mem_rate, flops / fp32_rate),
+        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        flops=flops, bytes=nbytes, max_abs_err=err,
+        shape=f"B={b} S={s} H={h} P={p} N={n} Q={qn} fp32")
+    for name in ("flash_attention", "ssd_chunks"):
+        x_ = out[name]
+        lib = "n/a" if x_["library_ms"] is None else f"{x_['library_ms']:.4f}"
+        log(f"time {name} [{x_['shape']}]: kernel {x_['ms']:.4f} ms, plain "
+            f"{x_['plain_ms']:.4f} ms, library {lib} ms, bound {x_['bound_ms']:.4f} ms "
+            f"({x_['bound_by']}: {x_['flops']:.3g} FLOP, {x_['bytes']:.3g} B), "
+            f"{100 * x_['bound_ms'] / x_['ms']:.1f}% of bound; {card}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1213,6 +1615,8 @@ def main(argv=None) -> int:
     from repro_torch.core import ppat as tp
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels.csls import ops as ck
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ks
     from repro_torch.kernels.sparse_update import ops as sops
     from repro_torch.kernels.triple_score import ops
     from repro_torch.kge import engine as kge_engine
@@ -1229,6 +1633,9 @@ def main(argv=None) -> int:
         trainer, _ = train_path(torch, np, models, ops, sops, tier, dev, args, known, sizes[:2])
         handshake_path(torch, np, models, ops, sops, ck, tier, trainer, dev, args,
                        (3_000, YAGO["relations"], 12_000, 1_000))
+        for arch, counter in (("qwen3-0.6b", (fa, "flash_attention")),
+                              ("mamba2-2.7b", (ks, "ssd_chunks"))):
+            lm_serve(torch, np, arch, dev, args, "cpu", counter, LM_REHEARSE_PLAN)
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -1240,7 +1647,8 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    libraries = ops.LIBRARIES + sops.LIBRARIES + ck.LIBRARIES
+    libraries = (ops.LIBRARIES + sops.LIBRARIES + ck.LIBRARIES + fa.ops.LIBRARIES
+                 + ks.ops.LIBRARIES)
     build_logs = _nvcc.build_all(libraries)
     build_s = time.perf_counter() - t0
     log(f"build: {len(libraries)} kernel libraries in {build_s:.2f}s")
@@ -1276,15 +1684,28 @@ def main(argv=None) -> int:
     del hs_res
     times["profile_handshake"] = profile_handshake(torch, np, trainer, ctx, ppat_cfg, args.seed,
                                                    card)
+    del ctx, tier, trainer, versions, waves
+    torch.cuda.empty_cache()
+
+    worst.update(lm_kernels_vs_plain(torch, fa, ks, dev, args.seed))
+    lm = {}
+    for arch, counter in (("qwen3-0.6b", (fa, "flash_attention")),
+                          ("mamba2-2.7b", (ks, "ssd_chunks"))):
+        lm[arch] = lm_serve(torch, np, arch, dev, args, card, counter, LM_PLANS[arch])
+        torch.cuda.empty_cache()
+    times.update(lm_timings(torch, fa, ks, dev, card))
+
     # each kernel's launches over the main paths that run it: serving (phase
-    # 3), training (phase 6) and the handshake (phase 9)
+    # 3), training (phase 6), the handshake (phase 9) and LM serving (phase 12)
+    lm_launches = {**lm["qwen3-0.6b"]["launches"], **lm["mamba2-2.7b"]["launches"]}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
-                + hs["launches"].get(name, 0)
-                for name in ("pairwise_scores", "fused_ranks", "sparse_sgd_step",
-                             "cosine_matrix")}
+                + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
+                for name in KERNELS}
+    for name in ("flash_attention", "ssd_chunks"):
+        check(launches[name] > 0, f"the LM serving path never launched {name}")
 
     kernels = []
-    for name in ("pairwise_scores", "fused_ranks", "sparse_sgd_step", "cosine_matrix"):
+    for name in KERNELS:
         x = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -1295,7 +1716,7 @@ def main(argv=None) -> int:
             "bound_by": x["bound_by"], "library_ms": x["library_ms"],
         })
     result = {"card": card, "build_s": build_s, "check_max_abs_err": worst, "serve": res,
-              "train": train, "handshake": hs, "timings": times, "kernels": kernels,
+              "train": train, "handshake": hs, "lm": lm, "timings": times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     try:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

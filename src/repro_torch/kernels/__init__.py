@@ -8,3 +8,6 @@
 #   triple_score  — pairwise (B, E) scores and the filtered fused-rank count
 #   sparse_update — the fused margin-SGD step, in place on {ent, rel}
 #   csls          — the cosine matrix behind CSLS, rows normalised in the tile
+#   flash_attention — blocked online-softmax attention (causal, window, GQA)
+#                     for the LM's prefill
+#   ssd_scan        — the Mamba2 SSD intra-chunk product and chunk states

@@ -1,0 +1,119 @@
+"""Public wrapper of the flash-attention kernel (csrc/flash_attention.cu).
+
+``flash_attention(q, k, v, causal=, window=)`` takes the JAX package's
+layout — q (B, H, S, Dh), k/v (B, KV, T, Dh) — as any strided views whose
+last dimension is contiguous: the model's projections are (B, S, H, Dh), and
+their ``transpose(1, 2)`` goes to the kernel without a copy. The output has
+q's strides (``torch.empty_like``), so the caller's transpose back is free.
+
+For a CUDA tensor it launches the kernel or raises; for a CPU tensor it takes
+the plain version (``ref.attention_ref``). ``LAUNCHES`` counts kernel
+launches, so a run can show its main path went through the kernel.
+
+The JAX package's LM path never reaches its Pallas kernel (its
+``models/attention.py`` computes dense jnp softmax attention, or an XLA scan
+above 8,192 tokens); the Pallas kernel computes the same function, and the
+tests hold this port's kernel path against both.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._nvcc import CudaLibrary
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+FLASH_LIB = CudaLibrary("flash_attention", _CSRC / "flash_attention.cu")
+LIBRARIES = (FLASH_LIB,)
+
+#: kernel launches since the last ``reset_launches``
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURE = ([_VP] * 4 + [_I] * 6 + [_LL] * 12
+              + [_I, _I, ctypes.c_float, _I, _I, _VP])
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _entry():
+    cdll = FLASH_LIB.load()
+    fn = cdll.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURE
+        fn.restype = ctypes.c_int
+        cdll.flash_attention_error_string.argtypes = [ctypes.c_int]
+        cdll.flash_attention_error_string.restype = ctypes.c_char_p
+    return fn, cdll
+
+
+def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.device:
+    """Device of the inputs; raises on what the kernel does not take."""
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"flash_attention: inputs on different devices "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: expected q (B, H, S, Dh) and k, v (B, KV, T, Dh), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, _, dh = q.shape
+    if k.shape[0] != b or k.shape[3] != dh or k.shape[1] == 0 or h % k.shape[1]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
+                         "(same B and Dh, H a multiple of KV)")
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if dev.type == "cuda":
+        if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+            raise TypeError(f"flash_attention: q, k, v must all be float32 or bfloat16, got "
+                            f"{q.dtype}, {k.dtype}, {v.dtype}")
+        if dh not in HEAD_DIMS:
+            raise ValueError(f"flash_attention: head dim {dh} not supported by the kernel "
+                             f"({HEAD_DIMS})")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.stride(3) != 1:
+                raise ValueError(f"flash_attention: {name}'s last dimension must be contiguous")
+        if b > 65_535 or h > 65_535:
+            raise ValueError(f"flash_attention: B={b}, H={h} exceed the kernel's grid")
+    return dev
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """q: (B, H, S, Dh); k/v: (B, KV, T, Dh), H % KV == 0 → (B, H, S, Dh) in
+    q's dtype (fp32 math). Causal masks ``k > q``, a window ``q − k ≥
+    window``; any S and T (no block divisibility). On the card Dh is one of
+    ``HEAD_DIMS`` and the dtype float32 or bfloat16."""
+    dev = _check_inputs(q, k, v)
+    if dev.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.stride(3) != 1:
+        out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    if b == 0 or s == 0:
+        return out
+    fn, cdll = _entry()
+    strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv, s, t, dh,
+                *strides, int(causal), int(window), 1.0 / math.sqrt(dh),
+                _DTYPE_CODES[q.dtype], dev.index, stream)
+    if rc != 0:
+        msg = cdll.flash_attention_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} (cudaError {rc})")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,4 +1,8 @@
-from repro_torch.serving.engine import KGECandidateRanker  # noqa: F401
+from repro_torch.serving.engine import (  # noqa: F401
+    KGECandidateRanker,
+    Request,
+    ServingEngine,
+)
 from repro_torch.serving.tables import (  # noqa: F401
     FilterPack,
     TableVersion,

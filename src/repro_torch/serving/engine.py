@@ -1,5 +1,10 @@
-"""KGE candidate ranking: filtered ranks and streaming top-k over a trained
-model — the KGE part of the JAX package's ``serving/engine.py``.
+"""The serving engines of the JAX package's ``serving/engine.py``.
+
+``ServingEngine`` (at the end of this file) is the LM engine: slot-based
+continuous batching over ``CausalLM.prefill``/``decode_step``.
+
+KGE candidate ranking (``KGECandidateRanker``): filtered ranks and streaming
+top-k over a trained model.
 
 Ranks go through the fused-rank kernel (``kge.eval.streaming_side_counts``);
 top-k scores the entity table one chunk at a time through the pairwise
@@ -16,11 +21,14 @@ total and the result the same for any chunk size.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.triple_score import pairwise_scores
 from repro_torch.kernels.triple_score.ops import exclusion_mask
 from repro_torch.kge.eval import streaming_side_counts
@@ -186,3 +194,127 @@ def topk_tails_dispatch(params, model, h, r, filt, *, k: int, block_e: int):
         return _streaming_topk_decomposed(q, table, filt, k=k, block_e=block_e,
                                           mode=mode)
     return _streaming_topk_generic(params, model, h, r, filt, k=k, block_e=block_e)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: continuous batching over the decode step
+# ---------------------------------------------------------------------------
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (P,) int32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    generated: List[int] = field(default_factory=list)
+    done: bool = False
+    # perf_counter: latency math (finished_at - submitted_at) must be
+    # monotonic; time.time() jumps with NTP/clock adjustments
+    submitted_at: float = field(default_factory=time.perf_counter)
+    finished_at: Optional[float] = None
+
+
+class ServingEngine:
+    """A fixed pool of ``max_batch`` slots shares one cache. Requests are
+    admitted into free slots (a batch-1 prefill writes that slot's cache
+    rows), one batched ``decode_step`` advances every slot per tick at each
+    slot's own position, and finished slots are recycled without disturbing
+    the others. Decoding is greedy (``temperature`` is recorded but, as in
+    the JAX engine, not sampled from), so the tokens of a request equal a
+    batch-1 ``prefill`` + ``decode_step`` run of its prompt alone.
+
+    ``model`` is a ``CausalLM`` of ``cfg``; it is moved to ``device``
+    (``None``: the current CUDA card, which is required unless the CPU is
+    asked for). The cache is updated in place. A request whose prompt plus
+    ``max_new_tokens`` exceeds ``max_len`` is refused at ``submit`` (the JAX
+    engine's ``dynamic_update_slice`` would clamp its writes to the last
+    cache row instead). The JAX engine's ``seed`` is left out: greedy
+    decoding draws nothing."""
+
+    def __init__(self, model, cfg, *, max_batch: int = 4, max_len: int = 512, device=None):
+        if cfg.encoder_layers:
+            raise NotImplementedError(
+                "continuous batching engine supports decoder-only archs; "
+                "use launch/serve.py for enc-dec (whisper)"
+            )
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.max_batch = max_batch
+        self.max_len = max_len + cfg.num_patches
+        self.cache = self.model.init_cache(max_batch, self.max_len)
+        self.lengths = np.zeros(max_batch, np.int32)   # tokens in each slot
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+        self.last_token = np.zeros((max_batch, 1), np.int32)
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self._next_rid = 0
+
+    # --- public API ---------------------------------------------------------
+    def submit(self, prompt: np.ndarray, *, max_new_tokens: int = 16,
+               temperature: float = 0.0) -> int:
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1 or len(prompt) == 0:
+            raise ValueError(f"prompt must be a non-empty 1-D token array, got shape "
+                             f"{prompt.shape}")
+        if len(prompt) + max_new_tokens > self.max_len:
+            raise ValueError(f"prompt of {len(prompt)} tokens + {max_new_tokens} new tokens "
+                             f"exceeds max_len {self.max_len}")
+        rid = self._next_rid
+        self._next_rid += 1
+        self.queue.append(Request(rid, prompt, max_new_tokens, temperature))
+        return rid
+
+    def _slot_cache(self, slot: int):
+        """Views of one slot's rows of every layer's cache (writes go through)."""
+        return [{kind: {k: t[slot:slot + 1] for k, t in c.items()}
+                 for kind, c in layer.items()} for layer in self.cache]
+
+    def _admit(self) -> None:
+        for slot in range(self.max_batch):
+            if self.slot_req[slot] is not None or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            tokens = torch.as_tensor(req.prompt[None, :], device=self.device, dtype=torch.long)
+            logits = self.model.prefill(tokens, self._slot_cache(slot))
+            first = int(torch.argmax(logits[0, -1]))
+            req.generated.append(first)
+            self.slot_req[slot] = req
+            self.lengths[slot] = len(req.prompt) + self.cfg.num_patches
+            self.last_token[slot, 0] = first
+
+    def _retire(self) -> None:
+        for slot, req in enumerate(self.slot_req):
+            if req is not None and len(req.generated) >= req.max_new_tokens:
+                req.done = True
+                req.finished_at = time.perf_counter()
+                self.finished.append(req)
+                self.slot_req[slot] = None
+                self.lengths[slot] = 0
+
+    def step(self) -> int:
+        """One engine tick: admit, decode all slots in one batched call,
+        retire. Returns the number of active slots decoded."""
+        self._admit()
+        self._retire()  # a request of max_new_tokens <= 1 is done at prefill
+        active = [s for s, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return 0
+        tok = torch.as_tensor(self.last_token, device=self.device, dtype=torch.long)
+        pos = torch.as_tensor(self.lengths, device=self.device, dtype=torch.long)
+        logits = self.model.decode_step(tok, self.cache, pos)
+        nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy().astype(np.int32)
+        for slot in active:
+            req = self.slot_req[slot]
+            tok_id = int(nxt[slot])
+            req.generated.append(tok_id)
+            self.lengths[slot] += 1
+            self.last_token[slot, 0] = tok_id
+        self._retire()
+        return len(active)
+
+    def run_until_drained(self, *, max_ticks: int = 1000) -> List[Request]:
+        for _ in range(max_ticks):
+            if not self.queue and all(r is None for r in self.slot_req):
+                break
+            self.step()
+        return self.finished

@@ -21,6 +21,13 @@ The cosine kernel agrees with its plain version within atol 1e-5 (zero rows
 give exactly 0); blockwise CSLS argmaxes equal the full matrix's up to
 near-ties (1e-5). Sixteen PPAT rounds on the card give the CPU's vote counts
 and W within 1e-4.
+
+Flash attention agrees with its dense plain version within 1e-5 (atol and
+rtol) at fp32 and within one bf16 ulp (rtol 2**-7, atol 1e-5) at bf16. The
+SSD chunk kernel agrees with its plain version within 1e-5 of the largest
+output magnitude (both sum ``cum`` in the same order), the whole SSD with the plain chunk loop within 1e-3 of it.
+A reduced LM card served on the card gives the CPU engine's tokens up to
+near-ties (1e-4 of the logits).
 """
 import numpy as np
 import pytest
@@ -374,3 +381,165 @@ def test_ppat_on_the_card_equals_the_cpu(cuda_dev):
     assert torch.equal(out["cpu"][1], out["cuda"][1])
     assert torch.equal(out["cpu"][2], out["cuda"][2])
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------- LM serving kernels
+FLASH_CASES = [
+    # b, h, kv, s, dh, causal, window
+    (1, 16, 8, 1024, 128, True, 0),   # qwen3-0.6b's heads
+    (2, 4, 2, 333, 64, True, 0),      # ragged S
+    (1, 4, 4, 333, 64, False, 64),    # non-causal with a window
+    (1, 8, 2, 200, 32, True, 64),     # GQA 4:1, sliding window, Dh 32
+    (1, 2, 1, 1, 128, True, 0),       # one token
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,s,dh,causal,window", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda_dev, b, h, kv, s, dh, causal, window, dtype):
+    """The kernel on the model's (B, S, H, Dh) projections seen as (B, H, S,
+    Dh) views, against the dense plain version on the same inputs: within
+    1e-5 (atol and rtol) at fp32; at bf16 both round the same fp32 result,
+    so they differ by at most one bf16 ulp (rtol 2**-7, atol 1e-5)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_dev).manual_seed(s * h + dh)
+    q = torch.randn(b, s, h, dh, device=cuda_dev, generator=g).to(dtype).transpose(1, 2)
+    k = torch.randn(b, s, kv, dh, device=cuda_dev, generator=g).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, kv, dh, device=cuda_dev, generator=g).to(dtype).transpose(1, 2)
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2.0 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros(1, 2, 8, 48, device=cuda_dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 64, device=cuda_dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, torch.zeros(1, 2, 64, 8, device=cuda_dev).transpose(2, 3), q)
+    with pytest.raises(ValueError, match="do not fit"):
+        fa.flash_attention(q, torch.zeros(1, 3, 8, 64, device=cuda_dev),
+                           torch.zeros(1, 3, 8, 64, device=cuda_dev))
+
+
+def _ssd_inputs(g, dev, b, s, h, p, n):
+    """Inputs with the Mamba2 laws of ``Mamba2Mixer``: A = −(1..H), dt =
+    softplus(N(0, 1) + softplus⁻¹(dt_init)), log dt_init uniform on
+    [log 1e-3, log 1e-1]."""
+    import math
+
+    x = torch.randn(b, s, h, p, device=dev, generator=g)
+    u = torch.rand(h, device=dev, generator=g)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=dev, generator=g)
+                                      + torch.log(torch.expm1(dt_init)))
+    a = -torch.arange(1, h + 1, device=dev, dtype=torch.float32)
+    bm = torch.randn(b, s, 1, n, device=dev, generator=g)
+    cm = torch.randn(b, s, 1, n, device=dev, generator=g)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 512, 80, 64, 128, 256),   # mamba2-2.7b's heads, two chunks
+    (2, 96, 16, 32, 32, 32),      # the reduced card
+    (1, 150, 3, 16, 8, 50),       # a chunk that is not a multiple of the 64-row tile
+    (1, 64, 2, 128, 72, 64),      # P 128, N past one 64-wide tile
+])
+def test_ssd_chunks_match_plain(cuda_dev, b, s, h, p, n, chunk):
+    """The chunk kernel against its plain version on the card (all three
+    outputs), and the whole SSD against the plain chunk loop
+    (``models.ssm.ssd``), with and without an initial state. The kernel and
+    the plain version sum ``cum`` in the same order, so the outputs agree
+    within 1e-5 of their largest magnitude; the whole SSD, whose plain loop
+    takes ``torch.cumsum``, within 1e-3 of it."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    g = torch.Generator(device=cuda_dev).manual_seed(s * h + p)
+    x, dt, a, bm, cm = _ssd_inputs(g, cuda_dev, b, s, h, p, n)
+    nc, q = s // chunk, chunk
+    xg = x.reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dtg = dt.reshape(b, nc, q, h).permute(0, 3, 1, 2)
+    bg, cg = bm.reshape(b, nc, q, n), cm.reshape(b, nc, q, n)
+    before = ks.LAUNCHES["ssd_chunks"]
+    got = ks.ssd_chunks(xg, dtg, a, bg, cg)
+    want = ks.ssd_chunks_plain(xg, dtg, a, bg, cg)
+    torch.cuda.synchronize()
+    assert ks.LAUNCHES["ssd_chunks"] == before + 1
+    for name, x_, y_ in zip(("y_intra", "state", "decay"), got, want):
+        err = float((x_ - y_).abs().max())
+        assert err <= 1e-5 * float(y_.abs().max()), (name, err, float(y_.abs().max()))
+    s0 = torch.randn(b, h, p, n, device=cuda_dev, generator=g)
+    for state in (None, s0):
+        y, fin = ks.ssd_chunk_kernel_apply(x, dt, a, bm, cm, chunk=chunk, state=state)
+        yr, fr = ks.ssd_ref(x, dt, a, bm, cm, chunk, state)
+        assert float((y - yr).abs().max()) <= 1e-3 * float(yr.abs().max())
+        assert float((fin - fr).abs().max()) <= 1e-3 * float(fr.abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev):
+    from repro_torch.kernels import ssd_scan as ks
+
+    x = torch.zeros(1, 2, 1, 8, 48, device=cuda_dev)
+    dt = torch.zeros(1, 2, 1, 8, device=cuda_dev)
+    a = torch.zeros(2, device=cuda_dev)
+    bc = torch.zeros(1, 1, 8, 16, device=cuda_dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ks.ssd_chunks(x, dt, a, bc, bc)
+    with pytest.raises(TypeError):
+        ks.ssd_chunks(x[..., :32].double(), dt, a, bc, bc)
+    with pytest.raises(NotImplementedError, match="one group"):
+        ks.ssd_chunk_kernel_apply(torch.zeros(1, 8, 2, 32, device=cuda_dev),
+                                  torch.zeros(1, 8, 2, device=cuda_dev), a,
+                                  torch.zeros(1, 8, 2, 16, device=cuda_dev),
+                                  torch.zeros(1, 8, 2, 16, device=cuda_dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b"])
+def test_lm_engine_on_the_card_equals_the_cpu(cuda_dev, arch):
+    """The reduced card served by ``ServingEngine`` on the card (kernels) and
+    on the CPU (plain versions), same weights and ragged prompts: tokens
+    equal up to near-ties (1e-4 of the CPU's logits), and the card's run
+    launched its kernel in every prefill."""
+    from _torch_lm_check import assert_tokens_match, batch1_greedy
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(cuda_dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (5, 37, 64, 20, 90)]
+    fa.reset_launches()
+    ks.reset_launches()
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda_dev)):
+        eng = ServingEngine(model, cfg, max_batch=2, max_len=128, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=12)
+        out[name] = {r.rid: r.generated for r in eng.run_until_drained()}
+    kernel = fa.LAUNCHES["flash_attention"] if arch.startswith("qwen") \
+        else ks.LAUNCHES["ssd_chunks"]
+    assert kernel == len(prompts) * cfg.num_layers
+    for rid, p in enumerate(prompts):
+        ref, logits = batch1_greedy(cpu, p, 12)
+        assert_tokens_match(out["cpu"][rid], ref, logits, 1e-4)
+        assert_tokens_match(out["card"][rid], ref, logits, 1e-4)

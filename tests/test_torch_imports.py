@@ -41,10 +41,24 @@ def test_port_files_exist():
                  "src/repro_torch/core/privacy.py", "src/repro_torch/core/pate.py",
                  "src/repro_torch/core/ppat.py", "src/repro_torch/core/alignment.py",
                  "src/repro_torch/core/aggregation.py",
-                 "src/repro_torch/kernels/csls/ops.py", "src/repro_torch/kernels/csls/ref.py"):
+                 "src/repro_torch/kernels/csls/ops.py", "src/repro_torch/kernels/csls/ref.py",
+                 "src/repro_torch/configs/base.py", "src/repro_torch/configs/registry.py",
+                 "src/repro_torch/data/pipeline.py", "src/repro_torch/models/layers.py",
+                 "src/repro_torch/models/attention.py", "src/repro_torch/models/ssm.py",
+                 "src/repro_torch/models/blocks.py", "src/repro_torch/models/model.py",
+                 "src/repro_torch/kernels/flash_attention/ops.py",
+                 "src/repro_torch/kernels/flash_attention/ref.py",
+                 "src/repro_torch/kernels/ssd_scan/ops.py",
+                 "src/repro_torch/kernels/ssd_scan/ref.py",
+                 "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
     assert (REPO / "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu").is_file()
+    assert (REPO / "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu").is_file()
+    assert (REPO / "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunks.cu").is_file()
+    # every card of the JAX package has its copy in the port
+    jax_cards = {p.name for p in (REPO / "src/repro/configs").glob("*.py")}
+    assert jax_cards == {p.name for p in (REPO / "src/repro_torch/configs").glob("*.py")}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -93,6 +107,17 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         train_ppat(x, x, PPATConfig(steps=1, hidden=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         host_params_from_numpy({"student": {"w1": x}})
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import CausalLM, init_params
+
+    cfg = reduced(get_config("qwen3-0.6b")).replace(dtype="float32")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CausalLM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-0.6b", "--reduced"])
 
 
 def test_kernel_build_is_lazy():
@@ -105,16 +130,21 @@ def test_kernel_build_is_lazy():
         "from repro_torch.kernels.sparse_update import ops as sops\n"
         "from repro_torch.kernels.csls import ops as cops\n"
         "import repro_torch.core.ppat, repro_torch.core.aggregation\n"
+        "import repro_torch.models, repro_torch.launch.serve\n"
+        "from repro_torch.kernels.flash_attention import ops as fops\n"
+        "from repro_torch.kernels.ssd_scan import ops as kops\n"
         "assert all(lib._lib is None for lib in ops.LIBRARIES + sops.LIBRARIES"
-        " + cops.LIBRARIES)\n"
+        " + cops.LIBRARIES + fops.LIBRARIES + kops.LIBRARIES)\n"
         "assert 'jax' not in sys.modules and 'triton' not in sys.modules\n"
         "print(ops.PAIRWISE_LIB.path.name, ops.FUSED_RANKS_LIB.path.name,"
-        " sops.STEP_LIB.path.name, cops.COSINE_LIB.path.name)\n"
+        " sops.STEP_LIB.path.name, cops.COSINE_LIB.path.name, fops.FLASH_LIB.path.name,"
+        " kops.SSD_LIB.path.name)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120)
     assert out.returncode == 0, out.stderr
-    pair, fused, step, cos = out.stdout.split()
+    pair, fused, step, cos, flash, ssd = out.stdout.split()
+    assert flash.startswith("libflash_attention-") and ssd.startswith("libssd_chunks-")
     assert cos.startswith("libcsls_cosine-") and cos.endswith(".so")
     assert step.startswith("libsparse_update_step-") and step.endswith(".so")
     assert pair.startswith("libtriple_score_pairwise-") and pair.endswith(".so")
