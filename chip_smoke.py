@@ -17,7 +17,9 @@ Phases (every failed check ends the run with a non-zero exit):
    ``sparse_update``: the SGD step; ``csls``: the cosine matrix;
    ``flash_attention``; ``ssd_scan``: the SSD chunks) built from
    the ``csrc`` directories under
-   ``src/repro_torch/kernels``, one ``nvcc`` each, all started together;
+   ``src/repro_torch/kernels``, one ``nvcc`` each, all started together,
+   with each library's registers and spills (``-Xptxas -v``) and its
+   tensor-core instructions (HMMA, HGMMA) counted in ``cuobjdump -sass``;
 2. kernel vs plain version on the card, for the four score modes through the
    families that use them (TransE l1 and l2, DistMult dot, ComplEx dot over
    its 2d-wide table, RotatE cl1), E = 50,000, d = 100, with a ragged B and E
@@ -75,7 +77,8 @@ Phases (every failed check ends the run with a non-zero exit):
    scheduler's default accuracy score (Hit@10 beside it), accept or
    restore. Launch counters are zeroed just before and read just after;
    checks: ε finite and equal to the accountant over the returned vote
-   counts, the cosine, step and rank kernels all launched, CSLS retrieval
+   counts, the cosine, step and rank kernels all launched (the cosine
+   kernel 124 times: two retrievals, two passes of 31 blocks), CSLS retrieval
    < 0.01 with W = I and ≥ 0.9 after PPAT + procrustes, padding rows zero,
    table shapes restored, tables bit-equal to the snapshot (reject) or the
    retrained ones (accept), a version published before answering as
@@ -84,7 +87,9 @@ Phases (every failed check ends the run with a non-zero exit):
 10. timings: the cosine kernel at one retrieval block (4,096 × 123,853,
    d = 100; its output held against the plain version first), plain and
    library (``F.normalize(a) @ F.normalize(b).T``, TF32 off) times with the
-   bound; the whole retrieval on the host clock with its launches; and a
+   bound as split TF32 (three TF32 products on the tensor cores: the least
+   time for an fp32-accurate product) beside the fp32-pipe bound; the whole
+   retrieval on the host clock with its launches; and a
    ``torch.profiler`` trace of a second handshake: device time by kernel and
    the device's idle share.
 11. flash attention against its plain version (dense masked softmax) at
@@ -114,7 +119,9 @@ Phases (every failed check ends the run with a non-zero exit):
 14. timings of both kernels at the shapes of phase 11's first cases
    (kernel, plain, and for attention the library yardstick
    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
-   timed only) with their bounds.
+   timed only) with their bounds (attention: split TF32 beside fp32 pipes),
+   and of attention at the serve script's batch 4 x 2,048 (its output held
+   against the plain version first).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -196,6 +203,7 @@ LM_PLANS = {"qwen3-0.6b": (8, 16, 128, 2048, 4096, 32),
             "mamba2-2.7b": (4, 8, 256, 2048, 4096, 32)}
 LM_REHEARSE_PLAN = (2, 4, 8, 90, 256, 6)
 SERVE_GEN = 32           # tokens per sequence of the ``launch/serve.py`` run
+SERVE_BATCH_LM = 4       # sequences per ``launch/serve.py`` batch
 LM_TIE_TOL = 1e-3        # near-tie rule for greedy tokens: logits within this
 
 
@@ -222,13 +230,42 @@ def card_line() -> str:
 
 
 def peak_rates(name: str):
-    """(bytes/s, fp32 FLOP/s outside the tensor cores) from NVIDIA's data
-    sheets, for the card ``name`` (H100 SXM unless it says PCIe / H200)."""
+    """(bytes/s, fp32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on
+    the tensor cores) from NVIDIA's data sheets, for the card ``name`` (H100
+    SXM unless it says PCIe / H200)."""
     if "PCIe" in name or "PCIE" in name:
-        return 2.0e12, 51.2e12
+        return 2.0e12, 51.2e12, 378e12
     if "H200" in name:
-        return 4.8e12, 67e12
-    return 3.35e12, 67e12
+        return 4.8e12, 67e12, 495e12
+    return 3.35e12, 67e12, 495e12
+
+
+def split_tf32_bounds(flops, nbytes, card):
+    """Least times for an fp32 product of ``flops`` that moves ``nbytes``:
+    as split TF32 (three TF32 products on the tensor cores, fp32 accuracy),
+    which is the least, and on the fp32 pipes. Returns the kernel-line keys
+    (``bound_ms``, ``bound_by``: the split-TF32 bound) and ``bound_fp32_ms``."""
+    mem_rate, fp32_rate, tf32_rate = peak_rates(card)
+    t_bytes, t_ops = nbytes / mem_rate, 3 * flops / tf32_rate
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_fp32_ms=1e3 * max(t_bytes, flops / fp32_rate))
+
+
+def tensor_core_ops(path):
+    """Counts of tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) in
+    the SASS of a built library, by ``cuobjdump -sass``; None without it."""
+    from repro_torch.kernels import _nvcc
+
+    tool = Path(_nvcc.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts = {}
+    for op in ("HMMA", "HGMMA"):
+        counts[op] = sum(1 for ln in sass.splitlines() if f" {op}." in ln)
+    return counts
 
 
 # --------------------------------------------------------------- near ties
@@ -427,7 +464,7 @@ def time_ms(torch, fn, iters, warmup=3):
 
 def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     """Kernel, plain and library times at the serving batch, with bounds."""
-    mem_rate, fp32_rate = peak_rates(card)
+    mem_rate, fp32_rate, _ = peak_rates(card)
     e, d = params["ent"].shape
     b = SERVE_BATCH
     g = torch.Generator(device=dev).manual_seed(5)
@@ -795,7 +832,7 @@ def time_device_ms(torch, fn, per_run, runs):
 def step_timings(torch, np, models, sops, trainer, dev, card):
     """The step at the training shape: kernel (device time), one call
     between events (host launch included), plain version, and the bound."""
-    mem_rate, _ = peak_rates(card)
+    mem_rate, _, _ = peak_rates(card)
     e, d = trainer.params["ent"].shape
     r = trainer.params["rel"].shape[0]
     ent, rel = trainer.params["ent"].clone(), trainer.params["rel"].clone()
@@ -1087,6 +1124,10 @@ def handshake_path(torch, np, models, ops, sops, ck, tier, host, dev, args, size
     if dev.type == "cuda":
         for name in ("cosine_matrix", "sparse_sgd_step", "fused_ranks"):
             check(launches[name] > 0, f"the handshake never launched {name}")
+        # two CSLS retrievals (W = I, then refined), two passes of blocks each
+        want = 4 * -(-n_al // RETRIEVAL_BLOCK)
+        check(launches["cosine_matrix"] == want, f"the handshake launched the cosine kernel "
+              f"{launches['cosine_matrix']} times, not {want}")
     check(res["acc_identity"] < 0.01, f"CSLS retrieval with W = I reads {res['acc_identity']}")
     check(res["acc_refined"] >= 0.9,
           f"CSLS retrieval after PPAT + procrustes reads {res['acc_refined']} < 0.9")
@@ -1161,7 +1202,6 @@ def csls_timings(torch, ck, al, x, y, card):
     and the whole two-pass retrieval on the host clock."""
     import torch.nn.functional as F
 
-    mem_rate, fp32_rate = peak_rates(card)
     a, b = x[:RETRIEVAL_BLOCK].contiguous(), y.contiguous()
     n, d = a.shape
     m = b.shape[0]
@@ -1178,8 +1218,7 @@ def csls_timings(torch, ck, al, x, y, card):
         plain_ms=time_ms(torch, lambda: ck.cosine_matrix_plain(a, b), max(3, ITERS // 4)),
         library_ms=time_ms(torch, lambda: F.normalize(a, dim=1) @ F.normalize(b, dim=1).T,
                            ITERS),
-        bound_ms=1e3 * max(nbytes / mem_rate, flops / fp32_rate),
-        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        **split_tf32_bounds(flops, nbytes, card),
         flops=flops, bytes=nbytes, max_abs_err=err,
         shape=f"n={n} m={m} d={d}",
     )
@@ -1187,8 +1226,9 @@ def csls_timings(torch, ck, al, x, y, card):
     log(f"time cosine_matrix [{out['shape']}]: kernel {out['ms']:.4f} ms "
         f"({out['tflops']:.2f} TFLOP/s), plain {out['plain_ms']:.4f} ms, library "
         f"(F.normalize @ .T, TF32 off) {out['library_ms']:.4f} ms, bound "
-        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {flops:.3g} FLOP, {nbytes:.3g} B), "
-        f"{100 * out['bound_ms'] / out['ms']:.1f}% of bound; {card}")
+        f"{out['bound_ms']:.4f} ms split TF32 ({out['bound_by']}: {flops:.3g} FLOP x 3, "
+        f"{nbytes:.3g} B), {100 * out['bound_ms'] / out['ms']:.1f}% of it; fp32-pipe bound "
+        f"{out['bound_fp32_ms']:.4f} ms; {card}")
     runs = []
     for _ in range(3):
         ck.reset_launches()
@@ -1485,13 +1525,13 @@ def lm_serve(torch, np, arch, dev, args, card, counter, plan):
 
     # a launch/serve.py-style batched run: batch 4, prompt 2048 (rehearsal: 64)
     plen = 2048 if not args.rehearse else 64
-    batch = np.stack([ds.tokens(plen, seed=s) for s in range(4)])
+    batch = np.stack([ds.tokens(plen, seed=s) for s in range(SERVE_BATCH_LM)])
     lserve.generate(model, batch[:, :16], 2)  # warm-up: cuBLAS handles, allocator
     kernel_lib.reset_launches()
     gen_tokens, t = lserve.generate(model, batch, SERVE_GEN)
-    res["serve_batch"] = {"batch": 4, "prompt": plen, "gen": SERVE_GEN,
+    res["serve_batch"] = {"batch": SERVE_BATCH_LM, "prompt": plen, "gen": SERVE_GEN,
                           "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
-                          "prefill_tokens_per_s": 4 * plen / t["prefill_s"],
+                          "prefill_tokens_per_s": SERVE_BATCH_LM * plen / t["prefill_s"],
                           "decode_ms_per_token": 1e3 * t["decode_s"] / (SERVE_GEN - 1),
                           "launches": {kernel: kernel_lib.LAUNCHES[kernel]}}
     check(gen_tokens.shape == (4, SERVE_GEN) and bool((gen_tokens >= 0).all()
@@ -1531,7 +1571,7 @@ def lm_timings(torch, fa, ks, dev, card):
     with the bound."""
     import torch.nn.functional as F
 
-    mem_rate, fp32_rate = peak_rates(card)
+    mem_rate, fp32_rate, _ = peak_rates(card)
     out = {}
     g = torch.Generator(device=dev).manual_seed(71)
     b, s, h, kv, dh = FLASH_SHAPE
@@ -1542,22 +1582,30 @@ def lm_timings(torch, fa, ks, dev, card):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     err = max_err(got, want)
     del got, want
-    pairs = h * s * (s + 1) // 2            # visible (query, key) pairs, causal
-    flops = 4 * dh * pairs * b              # q.k and p.v, two FLOP per multiply-add
-    nbytes = 4 * (2 * b * h * s * dh + 2 * b * kv * s * dh)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    for name, batch in (("flash_attention", b), ("flash_attention_b4", SERVE_BATCH_LM)):
+        if batch != b:  # the serve script's batch: its output held against the plain one first
+            q, k, v = (torch.randn(batch, s, heads, dh, device=dev, generator=g).transpose(1, 2)
+                       for heads in (h, kv, kv))
+            got, want = fa.flash_attention(q, k, v), fa.attention_ref(q, k, v)
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            err = max(err, max_err(got, want))
+            del got, want
+        pairs = h * s * (s + 1) // 2            # visible (query, key) pairs, causal
+        flops = 4 * dh * pairs * batch          # q.k and p.v, two FLOP per multiply-add
+        nbytes = 4 * (2 * batch * h * s * dh + 2 * batch * kv * s * dh)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
 
-    def sdpa():
-        return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
+        def sdpa():
+            return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
 
-    out["flash_attention"] = dict(
-        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), ITERS),
-        plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v), ITERS),
-        library_ms=time_ms(torch, sdpa, ITERS),
-        bound_ms=1e3 * max(nbytes / mem_rate, flops / fp32_rate),
-        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
-        flops=flops, bytes=nbytes, max_abs_err=err,
-        shape=f"B={b} S={s} H={h} KV={kv} Dh={dh} causal fp32")
+        out[name] = dict(
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), ITERS),
+            plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v), ITERS),
+            library_ms=time_ms(torch, sdpa, ITERS),
+            **split_tf32_bounds(flops, nbytes, card),
+            flops=flops, bytes=nbytes, max_abs_err=err,
+            shape=f"B={batch} S={s} H={h} KV={kv} Dh={dh} causal fp32")
+        del qc, kc, vc
     b, s, h, p, n, qn = SSD_SHAPE
     x, dt, a, bm, cm, _ = ssd_inputs(torch, g, dev, b, s, h, p, n)
     views = chunk_views(x, dt, bm, cm, qn)
@@ -1578,13 +1626,16 @@ def lm_timings(torch, fa, ks, dev, card):
         bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
         flops=flops, bytes=nbytes, max_abs_err=err,
         shape=f"B={b} S={s} H={h} P={p} N={n} Q={qn} fp32")
-    for name in ("flash_attention", "ssd_chunks"):
+    for name in ("flash_attention", "flash_attention_b4", "ssd_chunks"):
         x_ = out[name]
         lib = "n/a" if x_["library_ms"] is None else f"{x_['library_ms']:.4f}"
+        kind = "split TF32, FLOP x 3" if "bound_fp32_ms" in x_ else "fp32"
+        fp32 = (f"; fp32-pipe bound {x_['bound_fp32_ms']:.4f} ms" if "bound_fp32_ms" in x_
+                else "")
         log(f"time {name} [{x_['shape']}]: kernel {x_['ms']:.4f} ms, plain "
             f"{x_['plain_ms']:.4f} ms, library {lib} ms, bound {x_['bound_ms']:.4f} ms "
-            f"({x_['bound_by']}: {x_['flops']:.3g} FLOP, {x_['bytes']:.3g} B), "
-            f"{100 * x_['bound_ms'] / x_['ms']:.1f}% of bound; {card}")
+            f"({kind}; {x_['bound_by']}: {x_['flops']:.3g} FLOP, {x_['bytes']:.3g} B), "
+            f"{100 * x_['bound_ms'] / x_['ms']:.1f}% of bound{fp32}; {card}")
     return out
 
 
@@ -1652,9 +1703,14 @@ def main(argv=None) -> int:
     build_logs = _nvcc.build_all(libraries)
     build_s = time.perf_counter() - t0
     log(f"build: {len(libraries)} kernel libraries in {build_s:.2f}s")
+    sass = {}
     for lib in libraries:
-        regs = [ln.strip() for ln in build_logs[lib.name].splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in build_logs[lib.name].splitlines()
+                if "Used" in ln and "registers" in ln or "spill" in ln and "bytes spill" in ln
+                and not ln.strip().startswith("0 bytes")]
         log(f"build {lib.name}: " + (" | ".join(regs) if regs else f"already built ({lib.path})"))
+        sass[lib.name] = tensor_core_ops(lib.path)
+        log(f"sass {lib.name}: tensor-core instructions {sass[lib.name]}")
 
     worst = kernel_vs_plain(torch, ops, models, dev, args.seed, 50_000)
     tier, m, versions, waves, res = serve(
@@ -1715,7 +1771,8 @@ def main(argv=None) -> int:
             "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
             "bound_by": x["bound_by"], "library_ms": x["library_ms"],
         })
-    result = {"card": card, "build_s": build_s, "check_max_abs_err": worst, "serve": res,
+    result = {"card": card, "build_s": build_s, "sass": sass, "check_max_abs_err": worst,
+              "serve": res,
               "train": train, "handshake": hs, "lm": lm, "timings": times, "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     try:

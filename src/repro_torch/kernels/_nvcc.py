@@ -1,9 +1,10 @@
 """Build CUDA sources into shared libraries with a plain C interface, and
 load them with ``ctypes``.
 
-Each library is one ``.cu`` source (plus the headers it includes) compiled
-by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``build/kernels/`` at the repo root.
+Each library is one ``.cu`` source (plus the headers it includes, from its
+own directory or from ``kernels/include/``) compiled by ``nvcc -gencode
+arch=compute_90a,code=sm_90a -O3 -shared`` into ``build/kernels/`` at the
+repo root.
 The file name carries a hash of the sources, headers and flags, so an edited
 source is rebuilt and an unchanged one is reused. Nothing here runs at
 import time: the CPU tests import every module, and only a first launch on a
@@ -29,6 +30,11 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: the build log (``CudaLibrary.log``)
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v")
+
+#: headers shared by several kernels (``-I``)
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
+#: the split-TF32 tensor-core products and ``cp.async`` staging
+SPLIT_TF32 = INCLUDE_DIR / "split_tf32.cuh"
 
 #: libraries are built here, beside the sources' checkout (``.gitignore``d)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -81,7 +87,7 @@ class CudaLibrary:
             return None
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *self.flags, "-I", str(self.source.parent),
+        cmd = [find_nvcc(), *self.flags, "-I", str(self.source.parent), "-I", str(INCLUDE_DIR),
                "-o", str(tmp), str(self.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 text=True)

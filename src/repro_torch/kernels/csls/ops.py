@@ -18,17 +18,17 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary, build_all
+from repro_torch.kernels._nvcc import SPLIT_TF32, CudaLibrary, build_all
 from repro_torch.kernels.triple_score.ops import sqrt_rn
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-COSINE_LIB = CudaLibrary("csls_cosine", _CSRC / "cosine_matrix.cu")
+COSINE_LIB = CudaLibrary("csls_cosine", _CSRC / "cosine_matrix.cu", (SPLIT_TF32,))
 LIBRARIES = (COSINE_LIB,)
 
 #: kernel launches since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"cosine_matrix": 0}
 
-#: the kernel's output tile is 128 × 128; its grid holds at most 65,535 row tiles
+#: a block of the kernel owns 128 rows of ``a``; its grid holds at most 65,535 of them
 _MAX_ROWS = 65_535 * 128
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int

@@ -24,11 +24,11 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary
+from repro_torch.kernels._nvcc import SPLIT_TF32, CudaLibrary
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-FLASH_LIB = CudaLibrary("flash_attention", _CSRC / "flash_attention.cu")
+FLASH_LIB = CudaLibrary("flash_attention", _CSRC / "flash_attention.cu", (SPLIT_TF32,))
 LIBRARIES = (FLASH_LIB,)
 
 #: kernel launches since the last ``reset_launches``
@@ -89,6 +89,21 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.de
     return dev
 
 
+def _outer_strides(x: torch.Tensor):
+    """x's (b, h, s) strides, 0 where the dimension has one element (its
+    stride is never used there)."""
+    return [st if n > 1 else 0 for n, st in zip(x.shape[:3], x.stride()[:3])]
+
+
+def _aligned(x: torch.Tensor) -> bool:
+    """Whether the kernel's 16-byte copies can read ``x`` in place: its
+    pointer and (b, h, s) strides in bytes are multiples of 16. Views that
+    are not (an odd offset or stride) are copied first; the model's
+    projections always are."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(st * size % 16 == 0 for st in _outer_strides(x))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """q: (B, H, S, Dh); k/v: (B, KV, T, Dh), H % KV == 0 → (B, H, S, Dh) in
@@ -100,13 +115,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         return attention_ref(q, k, v, causal=causal, window=window)
     b, h, s, dh = q.shape
     kv, t = k.shape[1], k.shape[2]
+    q, k, v = (x if _aligned(x) else x.clone(memory_format=torch.contiguous_format)
+               for x in (q, k, v))
     out = torch.empty_like(q)
-    if out.stride(3) != 1:
+    if out.stride(3) != 1 or not _aligned(out):
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     if b == 0 or s == 0:
         return out
     fn, cdll = _entry()
-    strides = [st for x in (q, k, v, out) for st in x.stride()[:3]]
+    strides = [st for x in (q, k, v, out) for st in _outer_strides(x)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv, s, t, dh,

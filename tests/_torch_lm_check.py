@@ -36,3 +36,23 @@ def assert_tokens_match(got, want, want_logits, tol: float) -> int:
     gap = abs(float(want_logits[i][got[i]]) - float(want_logits[i][want[i]]))
     assert gap <= tol, f"token {i}: {got[i]} vs {want[i]}, logit gap {gap} > {tol}"
     return 1
+
+
+def attention_f64(q, k, v, *, causal: bool, window: int = 0):
+    """Masked softmax attention evaluated in float64 — the truth that the
+    fp32 kernel and the fp32 plain version are both held to where the
+    scores are large (~50, qk-norm off), since there fp32 itself (one
+    rounding of each score, amplified by exp) moves the output by ~1e-5.
+    q (B, H, S, Dh), k/v (B, KV, T, Dh) → (B, H, S, Dh) float64."""
+    import math
+
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    b, h, s, dh = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, kv, h // kv, s, dh)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.double()) / math.sqrt(dh)
+    mask = attention_mask(s, t, causal=causal, window=window, device=q.device)
+    probs = torch.softmax(scores.masked_fill(~mask, -1e30), dim=-1)
+    probs = probs.masked_fill(~mask.any(1)[:, None], 0.0)
+    return torch.einsum("bkgst,bktd->bkgsd", probs, v.double()).reshape(b, h, s, dh)
