@@ -19,7 +19,8 @@ Phases (every failed check ends the run with a non-zero exit):
    the ``csrc`` directories under
    ``src/repro_torch/kernels``, one ``nvcc`` each, all started together,
    with each library's registers and spills (``-Xptxas -v``) and its
-   tensor-core instructions (HMMA, HGMMA) counted in ``cuobjdump -sass``;
+   tensor-core instructions (HMMA, HGMMA) counted in ``cuobjdump -sass``
+   (the SSD library must have some);
 2. kernel vs plain version on the card, for the four score modes through the
    families that use them (TransE l1 and l2, DistMult dot, ComplEx dot over
    its 2d-wide table, RotatE cl1), E = 50,000, d = 100, with a ragged B and E
@@ -42,25 +43,29 @@ Phases (every failed check ends the run with a non-zero exit):
    host-clock time of one 64-row rank and top-k request, and a
    ``torch.profiler`` trace of the tier draining a burst: device time by
    kernel and the device's idle share;
-5. the sparse SGD step kernel against its plain version on the card, for
-   l1, l2 and dot, at the training shape (E = 491,078, R = 14,085, d = 100,
+5. the sparse SGD kernel against its plain version on the card, for l1, l2
+   and dot, at the training shape (E = 491,078, R = 14,085, d = 100,
    B = 100) and a ragged one (B = 37, d = 33), on batches built to break a
    wrong step (a hub row, ids 0 and E−1, rows shared by pos and neg): whole
-   tables after one step (atol 1e-6, loss rtol 1e-6) and after 64 steps
-   (atol 1e-5, losses rtol 1e-5), and two kernel runs of the 64 steps
-   bit-equal;
+   tables after one step (atol 1e-6, loss rtol 1e-6) and after one launch of
+   64 steps against the plain step loop (atol 1e-5, losses rtol 1e-5), two
+   kernel runs of the 64 steps bit-equal; and 64 steps on a 12-row table,
+   where every step re-reads rows the step before wrote (atol 1e-5);
 6. the training path: TransE L1, d = 100, lr 0.5, batch 100, margin 4, on
    the Dbpedia-sized store of phase 3 as the training split (valid and test
    are 2,000 triples each sampled from it). ``KGETrainer`` on ``cuda:0``
-   trains one epoch (13,737 batches cycle-padded to 16,384); the step
-   counter is zeroed just before and must read 16,384 after, the epoch
-   loss must be finite and the padding rows zero. Filtered link prediction
+   trains one epoch (13,737 batches cycle-padded to 16,384); the counters
+   are zeroed just before and must read one launch of 16,384 steps after,
+   the epoch loss must be finite and the padding rows zero. Filtered link prediction
    (``max_test`` 2,000, one chunk held against the plain rank count) and
    triple classification run before and after. The trained tables are
    published to the tier, trained one more step in place, and the published
    version must still answer as before;
-7. timings of the step (kernel, plain, bound) and a ``torch.profiler``
-   trace of 256 steps of the training loop: the device's idle share;
+7. timings of the epoch kernel at the training shape (device time of one
+   launch over a whole epoch, per epoch and per step, on clusters of 16 and
+   8 blocks; the plain step loop over the same epoch; the bound per epoch
+   and per step) and a ``torch.profiler`` trace of one training epoch of
+   the engine: the device's idle share;
 8. the cosine kernel against its plain version on the card: (n, m, d) =
    (1000, 777, 100) and (129, 4097, 33) with a zero row on each side (atol
    1e-5, zero rows exactly 0), ``csls_matrix`` around it (atol 4e-5), and
@@ -119,9 +124,13 @@ Phases (every failed check ends the run with a non-zero exit):
 14. timings of both kernels at the shapes of phase 11's first cases
    (kernel, plain, and for attention the library yardstick
    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
-   timed only) with their bounds (attention: split TF32 beside fp32 pipes),
-   and of attention at the serve script's batch 4 x 2,048 (its output held
-   against the plain version first).
+   timed only) with their bounds (split TF32 beside fp32 pipes), and of
+   both at the serve script's batch 4 x 2,048 (outputs held against the
+   plain versions first).
+
+A kernel's ``ms`` is its device time: calls queued behind a device-side
+sleep, between CUDA events (``time_device_ms``); ``call_ms`` beside it is
+one call between events on an idle stream, the host's launch included.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -152,6 +161,8 @@ RANK_REQUESTS = 300  # rank requests over the two waves of phase 3
 TOPK_REQUESTS = 40   # top-k requests over the two waves of phase 3
 CHECK_EVERY = 10     # re-check every n-th served request against the plain versions
 ITERS = 20           # timed runs per measurement
+DEVICE_CALLS = 5     # calls queued per device-time run (``time_device_ms``)
+DEVICE_RUNS = 10     # device-time runs per measurement
 
 #: (family, norm_ord) for each score mode of phase 2
 MODE_FAMILIES = {"l1": ("transe", 1), "l2": ("transe", 2), "dot": ("distmult", 1),
@@ -179,7 +190,6 @@ TRAIN_BATCH = 100    # ``KGETrainer``'s default batch
 TRAIN_LR = 0.5       # ``KGETrainer``'s default learning rate
 MAX_TEST = 2_000     # link prediction's default test slice
 STEP_TRAJECTORY = 64  # consecutive steps held against the plain version
-PROFILE_STEPS = 256  # training steps under the profiler
 #: Yago's size in the paper's Table 2, and the Yago–Dbpedia alignment, the
 #: largest pair of Table 3 (``kge/data.py::PAPER_KG_STATS``, ``PAPER_ALIGNMENTS``)
 YAGO = dict(entities=286_389, relations=37, triples=1_824_322)
@@ -448,7 +458,8 @@ def recheck_served(torch, np, models, ops, tier, m, versions, waves, dev):
 # ------------------------------------------------------------ phase 4
 def time_ms(torch, fn, iters, warmup=3):
     """Median milliseconds of ``fn`` over ``iters`` runs, each between two
-    CUDA events on the current stream."""
+    CUDA events on the current stream. On an idle stream the events also
+    bracket the host's time to launch: a call's time, not the device's."""
     for _ in range(warmup):
         fn()
     times = []
@@ -516,7 +527,9 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     flops = 2 * b * e * d
     bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
     out["fused_ranks"] = dict(
-        ms=time_ms(torch, fused, ITERS), plain_ms=time_ms(torch, fused_plain, max(3, ITERS // 4)),
+        ms=time_device_ms(torch, fused, DEVICE_CALLS, DEVICE_RUNS),
+        call_ms=time_ms(torch, fused, ITERS),
+        plain_ms=time_ms(torch, fused_plain, max(3, ITERS // 4)),
         library_ms=None, bound_ms=bound_ms,
         bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
         shape=f"B={b} E={e} d={d} F={f} mode={mode}", launches_per_batch=1,
@@ -536,9 +549,10 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     nbytes = 4 * (b * d + e * d + b * e)
     bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
     out["pairwise_scores"] = dict(
-        ms=time_ms(torch, pairwise, ITERS),
+        ms=time_device_ms(torch, pairwise, DEVICE_CALLS, DEVICE_RUNS),
+        call_ms=time_ms(torch, pairwise, ITERS),
         plain_ms=time_ms(torch, pairwise_plain, max(3, ITERS // 4)),
-        library_ms=time_ms(torch, library, ITERS), bound_ms=bound_ms,
+        library_ms=time_device_ms(torch, library, DEVICE_CALLS, DEVICE_RUNS), bound_ms=bound_ms,
         bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
         shape=f"B={b} E={e} d={d} mode={mode}, {len(chunks)} launches of <= {chunk} rows",
         launches_per_batch=len(chunks), bytes=nbytes, flops=flops, max_abs_err=pair_err,
@@ -546,7 +560,8 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     for name in ("fused_ranks", "pairwise_scores"):
         x = out[name]
         lib = "n/a" if x["library_ms"] is None else f"{x['library_ms']:.4f}"
-        log(f"time {name} [{x['shape']}]: kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms, "
+        log(f"time {name} [{x['shape']}]: kernel {x['ms']:.4f} ms device time ({x['call_ms']:.4f} "
+            f"ms for one call between events), plain {x['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
             f"{100 * x['bound_ms'] / x['ms']:.1f}% of bound; {card}")
     return out
@@ -637,13 +652,17 @@ def max_err(a, b):
 
 
 def step_vs_plain(torch, np, models, sops, dev, seed, e, r):
-    """The sparse SGD step kernel against its plain version on the card:
-    one step and a 64-step trajectory for every mode, twice for the kernel."""
+    """The sparse SGD kernel against its plain version on the card, every
+    mode: one step (an epoch of one batch), then one launch of 64 steps
+    against the plain step loop, twice for the kernel (bit-equal), and on a
+    12-row table where every step re-reads rows the step before wrote."""
     worst = 0.0
     rng = np.random.default_rng(seed + 5)
     for b, d in ((TRAIN_BATCH, DIM), (37, 33)):
         start = models.init_kge(seed + d, models.KGEModel("transe", e, r, d), device=dev)
         batches = [hard_batch(torch, np, rng, e, r, b, dev) for _ in range(STEP_TRAJECTORY)]
+        pos = torch.stack([p for p, _ in batches])
+        neg = torch.stack([n for _, n in batches])
         for mode in sops.SPARSE_MODES:
             ke, kr, pe, pr = (start[k].clone() for k in ("ent", "rel", "ent", "rel"))
             kl = sops.fused_sparse_step(ke, kr, *batches[0], TRAIN_LR, mode=mode)[2]
@@ -656,15 +675,16 @@ def step_vs_plain(torch, np, models, sops, dev, seed, e, r):
             runs = []
             for _ in range(2):
                 ke, kr = start["ent"].clone(), start["rel"].clone()
-                losses = [sops.fused_sparse_step(ke, kr, p, n, TRAIN_LR, mode=mode)[2]
-                          for p, n in batches]
-                runs.append((ke, kr, torch.stack(losses)))
+                before = sops.LAUNCHES["sparse_sgd_step"]
+                losses = sops.fused_sparse_epoch(ke, kr, pos, neg, TRAIN_LR, mode=mode)
+                check(sops.LAUNCHES["sparse_sgd_step"] == before + 1,
+                      f"{STEP_TRAJECTORY} steps took more than one launch")
+                runs.append((ke, kr, losses))
             pe, pr = start["ent"].clone(), start["rel"].clone()
-            plosses = torch.stack([sops.sparse_step_plain(pe, pr, p, n, TRAIN_LR, mode=mode)
-                                   for p, n in batches])
+            plosses = sops.sparse_epoch_plain(pe, pr, pos, neg, TRAIN_LR, mode=mode)
             torch.cuda.synchronize()
             check(all(torch.equal(x, y) for x, y in zip(*runs)),
-                  f"sparse step {mode} B={b} d={d}: two kernel runs of {STEP_TRAJECTORY} "
+                  f"sparse epoch {mode} B={b} d={d}: two kernel runs of {STEP_TRAJECTORY} "
                   f"steps differ")
             err64 = max(max_err(runs[0][0], pe), max_err(runs[0][1], pr))
             torch.testing.assert_close(runs[0][0], pe, atol=1e-5, rtol=0)
@@ -673,9 +693,27 @@ def step_vs_plain(torch, np, models, sops, dev, seed, e, r):
             worst = max(worst, err1, err64)
             log(f"check sparse step {mode:3s} E={e} R={r} B={b} d={d}: one step max|err|="
                 f"{err1:.3g}, loss {float(kl):.6f} vs {float(pl):.6f}; {STEP_TRAJECTORY} steps "
-                f"max|err|={err64:.3g}; reruns bit-equal")
+                f"in one launch max|err|={err64:.3g}; reruns bit-equal")
             del runs, ke, kr, pe, pr
-        del start
+        del start, pos, neg, batches
+    # a 12-row table: every step reads rows that other SMs wrote the step before
+    for mode in sops.SPARSE_MODES:
+        te = torch.as_tensor(rng.normal(0, 0.3, (12, 33)).astype("float32"), device=dev)
+        tr = torch.as_tensor(rng.normal(0, 0.3, (3, 33)).astype("float32"), device=dev)
+        batches = [hard_batch(torch, np, rng, 12, 3, 8, dev) for _ in range(STEP_TRAJECTORY)]
+        pos = torch.stack([p for p, _ in batches])
+        neg = torch.stack([n for _, n in batches])
+        pe, pr = te.clone(), tr.clone()
+        kl = sops.fused_sparse_epoch(te, tr, pos, neg, 0.1, mode=mode)
+        pl = sops.sparse_epoch_plain(pe, pr, pos, neg, 0.1, mode=mode)
+        torch.cuda.synchronize()
+        err = max(max_err(te, pe), max_err(tr, pr))
+        torch.testing.assert_close(te, pe, atol=1e-5, rtol=0)
+        torch.testing.assert_close(tr, pr, atol=1e-5, rtol=0)
+        torch.testing.assert_close(kl, pl, atol=1e-6, rtol=1e-5)
+        worst = max(worst, err)
+        log(f"check sparse epoch {mode:3s} on a 12-row table, {STEP_TRAJECTORY} steps in one "
+            f"launch: max|err|={err:.3g} (atol 1e-5) ok")
     return worst
 
 
@@ -733,11 +771,13 @@ def train_path(torch, np, models, ops, sops, tier, dev, args, known, sizes):
             torch.cuda.synchronize(dev)
         epoch_s = time.perf_counter() - t0
         launches = {**sops.LAUNCHES, **ops.LAUNCHES}
+        steps = dict(sops.STEPS)
     finally:
         engine.strip_tables = strip
     if dev.type == "cuda":
-        check(launches["sparse_sgd_step"] == nb,
-              f"the epoch launched {launches['sparse_sgd_step']} fused steps, not {nb}")
+        check(launches["sparse_sgd_step"] == 1 and steps["sparse_sgd_step"] == nb,
+              f"the epoch launched the step kernel {launches['sparse_sgd_step']} times for "
+              f"{steps['sparse_sgd_step']} steps, not once for {nb}")
     check(bool(np.isfinite(loss)), f"epoch loss {loss} is not finite")
     for k, v in padded.items():
         n = e if k in engine.ENT_KEYS else r
@@ -745,7 +785,7 @@ def train_path(torch, np, models, ops, sops, tier, dev, args, known, sizes):
     res = {"epoch_s": epoch_s, "steps": nb, "steps_per_s": nb / epoch_s, "loss": loss,
            "n_pad": nb * TRAIN_BATCH, "e_pad": padded["ent"].shape[0],
            "renorm": engine.resolve_renorm(nb * TRAIN_BATCH, padded["ent"].shape[0]),
-           "launches": launches, "setup_s": setup_s}
+           "launches": launches, "steps_run": steps, "setup_s": setup_s}
     del padded
     log(f"train: E={e} R={r} train={len(kg.train)} transe/l1 d={DIM} lr={TRAIN_LR} "
         f"B={TRAIN_BATCH} on {dev}: one epoch of {nb} steps (N_pad={res['n_pad']}, "
@@ -829,76 +869,101 @@ def time_device_ms(torch, fn, per_run, runs):
     return statistics.median(times)
 
 
-def step_timings(torch, np, models, sops, trainer, dev, card):
-    """The step at the training shape: kernel (device time), one call
-    between events (host launch included), plain version, and the bound."""
+def epoch_inputs(torch, engine, trainer, seed):
+    """Padded copies of the trainer's tables and one epoch's (nb, B, 3)
+    batches over its padded training store, drawn as the engine draws them."""
+    params, _, _ = engine.pad_tables(trainer.params, trainer.model)
+    dev = params["ent"].device
+    tri = engine.pad_triples(torch.as_tensor(trainer.kg.train.astype("int64"), device=dev),
+                             TRAIN_BATCH)
+    nb = tri.shape[0] // TRAIN_BATCH
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    drawn = engine.draw_epoch(gen, tri.shape[0], nb, TRAIN_BATCH, trainer.model.num_entities)
+    return params, engine.epoch_batches(tri, drawn, TRAIN_BATCH)
+
+
+def step_timings(torch, np, sops, engine, trainer, dev, card):
+    """The epoch kernel at the training shape: device time of one launch over
+    a whole epoch (clusters of 16 and 8 blocks), one lone step between events
+    (host launch included), the plain step loop over the same epoch, and the
+    bound per epoch and per step."""
     mem_rate, _, _ = peak_rates(card)
-    e, d = trainer.params["ent"].shape
-    r = trainer.params["rel"].shape[0]
-    ent, rel = trainer.params["ent"].clone(), trainer.params["rel"].clone()
-    rng = np.random.default_rng(3)
-    tri = trainer.kg.train[rng.choice(len(trainer.kg.train), TRAIN_BATCH, replace=False)]
-    pos = torch.as_tensor(tri.astype(np.int64), device=dev)
-    neg = pos.clone()
-    side = torch.as_tensor(rng.random(TRAIN_BATCH) < 0.5, device=dev)
-    rand = torch.as_tensor(rng.integers(0, e, TRAIN_BATCH), device=dev)
-    neg[:, 0] = torch.where(side, rand, pos[:, 0])
-    neg[:, 2] = torch.where(side, pos[:, 2], rand)
+    params, (pos, neg) = epoch_inputs(torch, engine, trainer, 3)
+    ent, rel = params["ent"], params["rel"]
+    e, d = ent.shape
+    r = rel.shape[0]
+    nb = pos.shape[0]
 
-    def kernel():
-        return sops.fused_sparse_step(ent, rel, pos, neg, TRAIN_LR)
+    def epoch(cluster=sops.CLUSTER_BLOCKS):
+        return sops.fused_sparse_epoch(ent, rel, pos, neg, TRAIN_LR, cluster=cluster)
 
-    def plain():
-        return sops.sparse_step_plain(ent, rel, pos, neg, TRAIN_LR)
+    def step():
+        return sops.fused_sparse_step(ent, rel, pos[0], neg[0], TRAIN_LR)
 
-    ue = int(torch.unique(torch.cat([pos[:, 0], pos[:, 2], neg[:, 0], neg[:, 2]])).numel())
-    ur = int(torch.unique(torch.cat([pos[:, 1], neg[:, 1]])).numel())
-    # least bytes: every unique row read once and written once, the ids read, the loss
-    nbytes = 2 * 4 * d * (ue + ur) + 8 * 6 * TRAIN_BATCH + 4
-    # what this design moves: 6B gathered rows, the scratch written and read,
-    # the unique rows read and written, the ids, the hinges and the loss
-    design_bytes = 4 * d * (6 * TRAIN_BATCH + 2 * 6 * TRAIN_BATCH + 2 * (ue + ur)) + \
-        8 * 6 * TRAIN_BATCH * 2 + 4 * 2 * TRAIN_BATCH + 4
+    # least bytes: in each step every unique row read once and written once,
+    # the step's ids read, its loss written
+    def unique_per_step(occ):
+        srt = occ.sort(dim=1).values
+        return (srt[:, 1:] != srt[:, :-1]).sum(1) + 1
+
+    ue = unique_per_step(torch.cat([pos[..., 0], pos[..., 2], neg[..., 0], neg[..., 2]], 1))
+    ur = unique_per_step(torch.cat([pos[..., 1], neg[..., 1]], 1))
+    nbytes = int(2 * 4 * d * int((ue + ur).sum())) + 8 * 6 * TRAIN_BATCH * nb + 4 * nb
+    runs = max(3, ITERS // 2)
     out = dict(
-        ms=time_device_ms(torch, kernel, 100, ITERS),
-        call_ms=time_ms(torch, kernel, ITERS),
-        plain_ms=time_ms(torch, plain, ITERS),
-        library_ms=None, bound_ms=1e3 * nbytes / mem_rate, bound_by="bytes",
-        bytes=nbytes, design_bytes=design_bytes, design_bound_ms=1e3 * design_bytes / mem_rate,
-        unique_rows=(ue, ur), shape=f"E={e} R={r} d={d} B={TRAIN_BATCH} mode=l1",
+        ms=time_device_ms(torch, epoch, 1, runs),
+        ms_cluster8=time_device_ms(torch, lambda: epoch(8), 1, runs),
+        call_ms=time_ms(torch, step, ITERS),
+        library_ms=None, bound_ms=1e3 * nbytes / mem_rate, bound_by="bytes", bytes=nbytes,
+        steps=nb, unique_rows_per_step=(float(ue.float().mean()), float(ur.float().mean())),
+        shape=f"E={e} R={r} d={d} B={TRAIN_BATCH} steps={nb} mode=l1",
     )
-    log(f"time sparse_sgd_step [{out['shape']}, {ue} + {ur} unique rows]: kernel "
-        f"{out['ms']:.4f} ms device time ({out['call_ms']:.4f} ms for one call between "
-        f"events, host launch included), plain {out['plain_ms']:.4f} ms, library none, "
-        f"bound {out['bound_ms']:.6f} ms (bytes: {nbytes}; this design moves {design_bytes}, "
-        f"{out['design_bound_ms']:.6f} ms), {100 * out['bound_ms'] / out['ms']:.2f}% of bound; "
-        f"{card}")
+    # the plain version over the same epoch, once: a Python loop of ~1 ms steps
+    torch.cuda.synchronize()
+    a_, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a_.record()
+    sops.sparse_epoch_plain(ent, rel, pos, neg, TRAIN_LR)
+    b_.record()
+    b_.synchronize()
+    out["plain_ms"] = a_.elapsed_time(b_)
+    for k in ("ms", "ms_cluster8", "plain_ms", "bound_ms"):
+        out[k.replace("ms", "ms_per_step")] = out[k] / nb
+    log(f"time sparse_sgd_step [{out['shape']}; {out['unique_rows_per_step'][0]:.1f} + "
+        f"{out['unique_rows_per_step'][1]:.1f} unique rows a step]: kernel {out['ms']:.4f} ms "
+        f"device time per epoch launch ({1e3 * out['ms_per_step']:.3f} us a step, a cluster of "
+        f"{sops.CLUSTER_BLOCKS} blocks; of 8 blocks {out['ms_cluster8']:.4f} ms), one lone "
+        f"step {out['call_ms']:.4f} ms between events, plain {out['plain_ms']:.1f} ms per epoch "
+        f"({out['plain_ms_per_step']:.4f} ms a "
+        f"step), library none, bound {out['bound_ms']:.4f} ms per epoch "
+        f"({1e3 * out['bound_ms_per_step']:.5f} us a step; bytes: {nbytes}), "
+        f"{100 * out['bound_ms'] / out['ms']:.2f}% of bound; {card}")
+    del params, pos, neg
     return out
 
 
 def profile_training(torch, engine, trainer, card):
-    """Device busy time and idle share over ``PROFILE_STEPS`` steps of the
-    engine's step loop on the padded Dbpedia tables (torch.profiler)."""
+    """Device busy time and idle share over one training epoch of the
+    engine (``train_epochs_device`` on copies of the trainer's tables: the
+    padding, the draws, the batches, one epoch-kernel launch, the norm
+    projection, the strip), under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    params, _, _ = engine.pad_tables(trainer.params, trainer.model)
-    spec = engine.shape_spec(trainer.model)
-    n = PROFILE_STEPS * TRAIN_BATCH
-    tri = torch.as_tensor(trainer.kg.train[:n].astype("int64"), device=params["ent"].device)
-    gen = torch.Generator(device=tri.device).manual_seed(1)
-    perm, ch, rand = engine.draw_epoch(gen, n, PROFILE_STEPS, TRAIN_BATCH,
-                                       trainer.model.num_entities)
-    pos = tri[perm].reshape(PROFILE_STEPS, TRAIN_BATCH, 3)
-    neg = torch.stack([torch.where(ch, rand, pos[..., 0]), pos[..., 1],
-                       torch.where(ch, pos[..., 2], rand)], dim=-1)
-    engine._fused_step(params, spec, pos[0], neg[0], TRAIN_LR)
+    dev = trainer.params["ent"].device
+    tri = torch.as_tensor(trainer.kg.train.astype("int64"), device=dev)
+
+    def one_epoch(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return engine.train_epochs_device(trainer.params, trainer.model, tri, epochs=1,
+                                          batch_size=TRAIN_BATCH, lr=TRAIN_LR, impl="fused",
+                                          generator=gen)
+
+    one_epoch(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        losses = [engine._fused_step(params, spec, pos[i], neg[i], TRAIN_LR)[1]
-                  for i in range(PROFILE_STEPS)]
-        torch.stack(losses).mean()
+        _, losses = one_epoch(2)
+        float(losses[-1])
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
@@ -906,13 +971,13 @@ def profile_training(torch, engine, trainer, card):
         if evt.device_type == DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
     busy = sum(by_name.values())
-    res = {"steps": PROFILE_STEPS, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    res = {"epochs": 1, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": None if busy == 0 else 1 - busy / wall_us,
            "top": [(k[:90], v / 1e3) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])]}
     if busy == 0:
         log("profile train: the profiler saw no device activity; idle share not measured")
     else:
-        log(f"profile train: {PROFILE_STEPS} steps in {res['wall_ms']:.2f} ms, device busy "
+        log(f"profile train: one epoch in {res['wall_ms']:.2f} ms, device busy "
             f"{res['device_busy_ms']:.3f} ms, idle share {res['idle_share']:.3f}; {card}")
         for name, ms in res["top"][:6]:
             log(f"profile train:   {ms:9.3f} ms  {100 * ms * 1e3 / busy:5.1f}%  {name}")
@@ -1214,17 +1279,19 @@ def csls_timings(torch, ck, al, x, y, card):
     flops = 2 * n * m * d
     nbytes = 4 * (n * d + m * d + n * m)
     out = dict(
-        ms=time_ms(torch, lambda: ck.cosine_matrix(a, b), ITERS),
+        ms=time_device_ms(torch, lambda: ck.cosine_matrix(a, b), DEVICE_CALLS, DEVICE_RUNS),
+        call_ms=time_ms(torch, lambda: ck.cosine_matrix(a, b), ITERS),
         plain_ms=time_ms(torch, lambda: ck.cosine_matrix_plain(a, b), max(3, ITERS // 4)),
-        library_ms=time_ms(torch, lambda: F.normalize(a, dim=1) @ F.normalize(b, dim=1).T,
-                           ITERS),
+        library_ms=time_device_ms(torch, lambda: F.normalize(a, dim=1) @ F.normalize(b, dim=1).T,
+                                  DEVICE_CALLS, DEVICE_RUNS),
         **split_tf32_bounds(flops, nbytes, card),
         flops=flops, bytes=nbytes, max_abs_err=err,
         shape=f"n={n} m={m} d={d}",
     )
     out["tflops"] = flops / out["ms"] / 1e9
-    log(f"time cosine_matrix [{out['shape']}]: kernel {out['ms']:.4f} ms "
-        f"({out['tflops']:.2f} TFLOP/s), plain {out['plain_ms']:.4f} ms, library "
+    log(f"time cosine_matrix [{out['shape']}]: kernel {out['ms']:.4f} ms device time "
+        f"({out['tflops']:.2f} TFLOP/s; {out['call_ms']:.4f} ms for one call between events), "
+        f"plain {out['plain_ms']:.4f} ms, library "
         f"(F.normalize @ .T, TF32 off) {out['library_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms split TF32 ({out['bound_by']}: {flops:.3g} FLOP x 3, "
         f"{nbytes:.3g} B), {100 * out['bound_ms'] / out['ms']:.1f}% of it; fp32-pipe bound "
@@ -1599,43 +1666,55 @@ def lm_timings(torch, fa, ks, dev, card):
             return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
 
         out[name] = dict(
-            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), ITERS),
+            ms=time_device_ms(torch, lambda: fa.flash_attention(q, k, v), DEVICE_CALLS,
+                              DEVICE_RUNS),
+            call_ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), ITERS),
             plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v), ITERS),
-            library_ms=time_ms(torch, sdpa, ITERS),
+            library_ms=time_device_ms(torch, sdpa, DEVICE_CALLS, DEVICE_RUNS),
             **split_tf32_bounds(flops, nbytes, card),
             flops=flops, bytes=nbytes, max_abs_err=err,
             shape=f"B={batch} S={s} H={h} KV={kv} Dh={dh} causal fp32")
         del qc, kc, vc
-    b, s, h, p, n, qn = SSD_SHAPE
-    x, dt, a, bm, cm, _ = ssd_inputs(torch, g, dev, b, s, h, p, n)
-    views = chunk_views(x, dt, bm, cm, qn)
-    args_ = (views[0], views[1], a, views[2], views[3])
-    err = max(max_err(gt, wt) for gt, wt in zip(ks.ssd_chunks(*args_),
-                                                 ks.ssd_chunks_plain(*args_)))
-    nc = s // qn
-    tri = qn * (qn + 1) // 2
-    # the least work: C.B^T once per chunk (one group), the triangle only
-    flops = 2 * b * nc * (tri * n + h * (tri * p + qn * p * n))
-    nbytes = 4 * (b * s * h * p + b * s * h + h + 2 * b * s * n       # x, dt, a, B, C
-                  + b * s * h * p + b * h * nc * p * n + b * s * h)    # y, states, decay
-    out["ssd_chunks"] = dict(
-        ms=time_ms(torch, lambda: ks.ssd_chunks(*args_), ITERS),
-        plain_ms=time_ms(torch, lambda: ks.ssd_chunks_plain(*args_), max(3, ITERS // 4)),
-        library_ms=None,
-        bound_ms=1e3 * max(nbytes / mem_rate, flops / fp32_rate),
-        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
-        flops=flops, bytes=nbytes, max_abs_err=err,
-        shape=f"B={b} S={s} H={h} P={p} N={n} Q={qn} fp32")
-    for name in ("flash_attention", "flash_attention_b4", "ssd_chunks"):
+    _, s, h, p, n, qn = SSD_SHAPE
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    err = 0.0
+    for name, b in (("ssd_chunks", SSD_SHAPE[0]), ("ssd_chunks_b4", SERVE_BATCH_LM)):
+        x, dt, a, bm, cm, _ = ssd_inputs(torch, g, dev, b, s, h, p, n)
+        views = chunk_views(x, dt, bm, cm, qn)
+        args_ = (views[0], views[1], a, views[2], views[3])
+        for gt, wt in zip(ks.ssd_chunks(*args_), ks.ssd_chunks_plain(*args_)):
+            check(rel_err(gt, wt) <= 1e-5, f"{name}: {rel_err(gt, wt):.3g} of max|plain|")
+            err = max(err, max_err(gt, wt))
+        nc = s // qn
+        tri = qn * (qn + 1) // 2
+        group = ks.ops.head_group(b, h, nc, qn, p, n, sms)
+        # the least work: C.B^T once per chunk (one group), the triangle only
+        flops = 2 * b * nc * (tri * n + h * (tri * p + qn * p * n))
+        # this design: C.B^T once per head group
+        design_flops = flops + 2 * b * nc * (-(-h // group) - 1) * tri * n
+        nbytes = 4 * (b * s * h * p + b * s * h + h + 2 * b * s * n       # x, dt, a, B, C
+                      + b * s * h * p + b * h * nc * p * n + b * s * h)    # y, states, decay
+        out[name] = dict(
+            ms=time_device_ms(torch, lambda: ks.ssd_chunks(*args_), DEVICE_CALLS, DEVICE_RUNS),
+            call_ms=time_ms(torch, lambda: ks.ssd_chunks(*args_), ITERS),
+            plain_ms=time_ms(torch, lambda: ks.ssd_chunks_plain(*args_), max(3, ITERS // 4)),
+            library_ms=None, **split_tf32_bounds(flops, nbytes, card),
+            flops=flops, design_flops=design_flops, heads_per_block=group, bytes=nbytes,
+            max_abs_err=err, shape=f"B={b} S={s} H={h} P={p} N={n} Q={qn} fp32")
+        del x, dt, a, bm, cm, views, args_
+    for name in ("flash_attention", "flash_attention_b4", "ssd_chunks", "ssd_chunks_b4"):
         x_ = out[name]
         lib = "n/a" if x_["library_ms"] is None else f"{x_['library_ms']:.4f}"
         kind = "split TF32, FLOP x 3" if "bound_fp32_ms" in x_ else "fp32"
         fp32 = (f"; fp32-pipe bound {x_['bound_fp32_ms']:.4f} ms" if "bound_fp32_ms" in x_
                 else "")
-        log(f"time {name} [{x_['shape']}]: kernel {x_['ms']:.4f} ms, plain "
+        log(f"time {name} [{x_['shape']}]: kernel {x_['ms']:.4f} ms device time "
+            f"({x_['call_ms']:.4f} ms for one call between events), plain "
             f"{x_['plain_ms']:.4f} ms, library {lib} ms, bound {x_['bound_ms']:.4f} ms "
             f"({kind}; {x_['bound_by']}: {x_['flops']:.3g} FLOP, {x_['bytes']:.3g} B), "
-            f"{100 * x_['bound_ms'] / x_['ms']:.1f}% of bound{fp32}; {card}")
+            f"{100 * x_['bound_ms'] / x_['ms']:.1f}% of bound{fp32}"
+            + (f"; this design {x_['design_flops']:.3g} FLOP with {x_['heads_per_block']} "
+               f"heads a block" if "design_flops" in x_ else "") + f"; {card}")
     return out
 
 
@@ -1711,6 +1790,9 @@ def main(argv=None) -> int:
         log(f"build {lib.name}: " + (" | ".join(regs) if regs else f"already built ({lib.path})"))
         sass[lib.name] = tensor_core_ops(lib.path)
         log(f"sass {lib.name}: tensor-core instructions {sass[lib.name]}")
+    ssd_tc = sass[ks.ops.SSD_LIB.name]
+    check(bool(ssd_tc) and ssd_tc["HMMA"] + ssd_tc["HGMMA"] > 0,
+          f"the SSD chunk library has no tensor-core instruction: {ssd_tc}")
 
     worst = kernel_vs_plain(torch, ops, models, dev, args.seed, 50_000)
     tier, m, versions, waves, res = serve(
@@ -1727,7 +1809,7 @@ def main(argv=None) -> int:
     worst["sparse_sgd_step"] = step_vs_plain(torch, np, models, sops, dev, args.seed, e, r)
     known = draw_known(np, args.seed, e, r, DBPEDIA["triples"])
     trainer, train = train_path(torch, np, models, ops, sops, tier, dev, args, known, (e, r))
-    times["sparse_sgd_step"] = step_timings(torch, np, models, sops, trainer, dev, card)
+    times["sparse_sgd_step"] = step_timings(torch, np, sops, kge_engine, trainer, dev, card)
     times["profile_train"] = profile_training(torch, kge_engine, trainer, card)
 
     worst["cosine_matrix"] = cosine_vs_plain(torch, ck, al, dev, args.seed)

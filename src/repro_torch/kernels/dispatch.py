@@ -105,21 +105,25 @@ SPARSE_KERNEL_FAMILIES = ("transe", "distmult")
 TRAIN_IMPL_ALIASES = {"pallas": "fused", "xla": "sparse"}
 
 
-def resolve_train_impl(impl: Optional[str] = None, family: str = "transe") -> str:
+def resolve_train_impl(impl: Optional[str] = None, family: str = "transe",
+                       device=None) -> str:
     """Pick the training step implementation.
 
-    ``fused`` (the JAX package's ``pallas``) — the fused sparse_update step:
-    the CUDA kernel on CUDA tables, its plain PyTorch version on CPU tables;
-    TransE and DistMult only. ``sparse`` (JAX: ``xla``) — autograd over the
-    gathered rows, every family. ``reference`` — the dense host-loop oracle.
-    ``REPRO_TRAIN_IMPL`` overrides and takes either set of names. The
-    default is ``fused`` for TransE and DistMult on every device, else
-    ``sparse``; ``fused`` asked for a family it does not cover becomes
-    ``sparse``, as in the JAX package."""
+    ``fused`` (the JAX package's ``pallas``) — the fused sparse_update
+    kernel: one launch per epoch on CUDA tables, its plain PyTorch version
+    on CPU tables; TransE and DistMult only. ``sparse`` (JAX: ``xla``) —
+    autograd over the gathered rows, every family. ``reference`` — the dense
+    host-loop oracle. ``REPRO_TRAIN_IMPL`` overrides and takes either set of
+    names. The default follows the device of the tables, as the JAX
+    package's follows its backend (``pallas`` on a TPU, ``xla`` elsewhere):
+    ``fused`` for TransE and DistMult on a CUDA ``device``, else ``sparse``.
+    ``fused`` asked for a family it does not cover becomes ``sparse``, as in
+    the JAX package."""
     if impl is None:
         impl = os.environ.get("REPRO_TRAIN_IMPL", "").strip().lower() or None
     if impl is None:
-        impl = "fused"
+        on_card = device is not None and torch.device(device).type == "cuda"
+        impl = "fused" if on_card and family in SPARSE_KERNEL_FAMILIES else "sparse"
     impl = TRAIN_IMPL_ALIASES.get(impl, impl)
     if impl not in ("fused", "sparse", "reference"):
         raise ValueError(f"unknown train impl {impl!r} "

@@ -38,6 +38,21 @@ __device__ __forceinline__ void split_bounded(float x, uint32_t& hi, uint32_t& l
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+// The same split with the rounding done on the bit pattern by an integer add
+// and a mask: for finite x, cvt.rna's result (ties away from zero, as the
+// magnitude bits carry), at two integer instructions where ptxas expands
+// cvt.rna.tf32 into a longer sequence. The SSD kernel, which splits every
+// operand of its products, uses this one.
+__device__ __forceinline__ uint32_t tf32_rna_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_bits(float x, uint32_t& hi, uint32_t& lo) {
+  const float lim = __uint_as_float(0x7f7fefffu);
+  hi = tf32_rna_bits(fminf(fmaxf(x, -lim), lim));
+  lo = tf32_rna_bits(x - __uint_as_float(hi));
+}
+
 // D += A·B for one m16n8k8 tile: A 16 x 8 (row), B 8 x 8 (col), fp32 sums.
 // Fragments (g = lane / 4, t = lane % 4): a = A[g][t], A[g+8][t], A[g][t+4],
 // A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t],

@@ -1,62 +1,110 @@
-// One margin-ranking SGD step on the {ent, rel} tables, in place, on Hopper.
+// Margin-ranking SGD on the {ent, rel} tables, in place, on Hopper: a whole
+// epoch of steps in one launch of one thread-block cluster.
 //
 // Replaces the JAX package's kernels/sparse_update/sparse_update.py::
-// sparse_sgd_step_fwd / _sparse_step_kernel and _margin_grads (Pallas, TPU):
-// for a minibatch of B positive triples and their B corruptions, score both
+// sparse_sgd_step_fwd / _sparse_step_kernel and _margin_grads (Pallas, TPU),
+// and the lax.scan over it in kge/engine.py::train_scan_graph: for each of
+// nb minibatches of B positive triples and their B corruptions, score both
 // (TransE l1 / l2, DistMult dot), take the analytic gradients of
-// mean(relu(margin - s_pos + s_neg)), sum them per touched row, and write
-// row -= lr * g into the tables; return the loss.
+// mean(relu(margin - s_pos + s_neg)), sum them per touched row, write
+// row -= lr * g into the tables, and store the step's loss. Step i + 1 reads
+// the rows step i wrote.
 //
-// The Pallas kernel runs on a (1,) grid: one program gathers the unique rows,
-// segment-sums with a one-hot matmul and scatters them in a serial loop.
-// Three things of that design do not carry over to a parallel grid:
-//   1. the serial scatter loop is what made its writes race-free;
-//   2. its unique set is padded with fill slots that alias row 0 with a zero
-//      gradient -- in parallel, a fill that reads row 0 before the real slot
-//      writes it and writes after would undo that update;
-//   3. pos and neg share rows, so every occurrence must be scored from the
-//      tables as they were before the step.
-// So this is two launches on one stream, which orders them:
-//   A (grads): one warp per batch row gathers its six rows straight from the
-//     tables, scores them, and writes the six per-occurrence gradient rows
-//     into a scratch buffer -- entity occurrences [pos_h | pos_t | neg_h |
-//     neg_t] (4B rows), relation occurrences [pos_r | neg_r] (2B rows) -- and
-//     the row's hinge. Nothing is written to the tables.
-//   B (scatter): one warp per occurrence. Each block stages the 6B
-//     occurrence ids in shared memory. An occurrence whose id appears
-//     earlier in its list owns nothing and stops; the first occurrence owns
-//     the row, sums the gradients of all occurrences of its id in occurrence
-//     order into a per-warp accumulator row in shared memory (so the d
-//     column loads of one match go out together), and writes the row once.
-//     No fill slots, no float atomics, and no row the batch did not touch is
-//     written. One more warp sums the B hinges in a fixed order into the
-//     loss. Every block scans all 6B ids, O(B^2) work in all: small at the
-//     trainer's B = 100, and the reason the wrapper caps B.
-// Nothing comes back to the host, so a step costs the host no sync.
+// The Pallas kernel runs one step on a (1,) grid and the reference scans it
+// as one compiled program: the epoch never leaves the device. A step moves
+// ~0.3 MB; what it costs is latency. So the epoch is one launch of one
+// cluster of 16 blocks (8, the portable size, on request) on neighbouring
+// SMs, and each step is two phases between cluster barriers, each barrier
+// split into barrier.cluster.arrive.release and wait.acquire with local
+// work between them:
+//   (a) each block takes its batch rows (block k rows [k*rpb, (k+1)*rpb),
+//       one warp a row), gathers the six rows, scores them, and keeps the
+//       six gathered rows, the six per-occurrence gradient rows and the
+//       row's hinge in its own shared memory. Nothing is written to the
+//       tables. Arrive; meanwhile the block asks L2 for the rows of its
+//       batch rows of the next step (prefetch.global.L2; the ids do not
+//       depend on the tables). Wait.
+//   (b) each block takes the occurrences of its own batch rows, one warp
+//       each, in the occurrence lists -- entities [pos_h | pos_t | neg_h |
+//       neg_t] (4B), relations [pos_r | neg_r] (2B). An occurrence whose id
+//       appears earlier in its list owns nothing; the first occurrence owns
+//       the row: it sums the gradient rows of every occurrence of its id in
+//       ascending occurrence order -- its own in this block's shared memory,
+//       a repeat's in another block's (distributed shared memory,
+//       cluster.map_shared_rank) -- and writes the row once, from the copy
+//       it gathered in (a). Block 0 sums the B hinges in a fixed order into
+//       losses[i]. Arrive; meanwhile the block turns the next step's ids
+//       (copied by cp.async during this step) into its occurrence lists, and
+//       starts the copy of the step after. Wait.
+// No global scratch, no float atomics, no host sync.
+//
+// Coherence: the tables are written and read by different SMs of the
+// cluster from one step to the next. So they are not declared __restrict__
+// const (which would allow ld.global.nc, not coherent with this kernel's own
+// writes), and every table access is ld.global.cg / st.global.cg: cached in
+// L2 only, so no SM can read a row it holds in L1 from an earlier step after
+// another SM wrote it. The cluster barriers order the writes of one phase
+// before the reads of the next at cluster scope.
+//
+// Batches too large for the cluster's shared memory (48 * d bytes for each
+// batch row, plus the ids; B <= 544 at d = 100 with 16 blocks) keep the
+// gradient rows in a global buffer instead, in the same kernel (the
+// !DSMEM instantiation), written and read through L2 by the same cg
+// accesses, and the owners read their rows from L2. Only the ids and hinges
+// stay in shared memory, which caps B at 9,585; the wrapper raises past it.
 //
 // Conventions follow _margin_grads exactly: relu'(0) = 0 (act > 0 strictly),
 // sign(0) = 0, the L2 norm is sqrt(sum x^2 + 1e-12), DistMult sums h*r*t.
 // Every product, sum and the update use the _rn intrinsics, so nvcc contracts
-// nothing into an FMA: each value is rounded where the plain PyTorch version
-// rounds it, and on inputs whose sums are exact the two agree bit for bit.
+// nothing into an FMA, and each row's sum runs in occurrence order: each
+// value is rounded where the plain PyTorch version rounds it, and on inputs
+// whose sums are exact the two agree bit for bit, step after step.
 //
-// What bounds it: at B = 100, d = 100 the step moves about 1 MB (6B gathered
-// rows, the 6B scratch rows written and read, at most 4B + 2B rows read and
-// written), 0.3 us at 3.35 TB/s. The two launches, each a few us of latency
-// on a dozen or a hundred warps, are what it actually costs; batching steps
-// (a persistent kernel, or CUDA graphs) is the lever, left for later.
+// What bounds it: a step at B = 100, d = 100 must move ~0.32 MB (each touched
+// row read and written once), 0.1 us at 3.35 TB/s. What it pays is a chain
+// of latencies: the gather from L2, the owners' shared-memory round, their
+// stores reaching L2 before the release, two cluster barriers; ~5.8 us a
+// step on the H100 (PERF.md), against the ~11.5 us of device time and ~60 us
+// of Python of the two launches a step it replaces.
 #include <assert.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace sparse_update {
 
 enum Mode { L1 = 0, L2 = 1, DOT = 2 };
-constexpr int WARPS = 8;
+constexpr int WARPS = 16;
 constexpr int THREADS = 32 * WARPS;
 constexpr unsigned FULL = 0xffffffffu;
 // dynamic shared memory a block may opt in to on Hopper (227 KB)
 constexpr size_t SMEM_LIMIT = 232448;
+
+struct Args {
+  float* ent;                // (E, d)
+  float* rel;                // (R, d)
+  const int64_t* pos;        // (nb, B, 3)
+  const int64_t* neg;        // (nb, B, 3)
+  float* losses;             // (nb,)
+  float* grads;              // (6B, d) in global memory; null when they fit shared memory
+  long long E, R;
+  int nb, B, d, rpb;         // rpb: batch rows per block
+  float lr, margin;
+};
+
+// Shared memory of one block, in bytes: [next ids (int64, 6B) | gradient
+// rows (6 * rpb * d) | the gathered rows (6 * rpb * d)]  -- the distributed-
+// shared-memory layout only -- then [hinges (rpb) | occurrence ids (int,
+// 6B)], and with distributed shared memory each occurrence's place in a
+// step's ids and its location (6B each).
+inline size_t smem_bytes(int B, int d, int rpb, bool dsmem) {
+  size_t n = 0;
+  if (dsmem)
+    n += (size_t)6 * B * (sizeof(int64_t) + 2 * sizeof(int)) + (size_t)12 * rpb * d * sizeof(float);
+  return n + (size_t)rpb * sizeof(float) + (size_t)6 * B * sizeof(int);
+}
 
 // Butterfly sum: every lane ends with the same value (fp add commutes).
 __device__ __forceinline__ float warp_sum(float v) {
@@ -69,194 +117,372 @@ __device__ __forceinline__ float sign_of(float x) {
   return (float)((x > 0.f) - (x < 0.f));
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-grads_kernel(const float* __restrict__ ent, const float* __restrict__ rel,
-             const int64_t* __restrict__ pos, const int64_t* __restrict__ neg,
-             float* __restrict__ g_e, float* __restrict__ g_r, float* __restrict__ hinge,
-             int B, int64_t E, int64_t R, int d, float margin) {
-  const int row = (int)((blockIdx.x * (unsigned)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= B) return;
-  const int64_t h = pos[3 * row], r = pos[3 * row + 1], t = pos[3 * row + 2];
-  const int64_t nh = neg[3 * row], nr = neg[3 * row + 1], nt = neg[3 * row + 2];
-  assert(h >= 0 && h < E && t >= 0 && t < E && nh >= 0 && nh < E && nt >= 0 && nt < E);
-  assert(r >= 0 && r < R && nr >= 0 && nr < R);
-  const float* he = ent + h * d;
-  const float* re = rel + r * d;
-  const float* te = ent + t * d;
-  const float* nhe = ent + nh * d;
-  const float* nre = rel + nr * d;
-  const float* nte = ent + nt * d;
-
-  // scores (lanes stride the width, then a warp sum)
-  float sp = 0.f, sn = 0.f;
-  for (int j = lane; j < d; j += 32) {
-    if (MODE == DOT) {
-      sp = __fadd_rn(sp, __fmul_rn(__fmul_rn(he[j], re[j]), te[j]));
-      sn = __fadd_rn(sn, __fmul_rn(__fmul_rn(nhe[j], nre[j]), nte[j]));
-    } else {
-      const float dp = __fsub_rn(__fadd_rn(he[j], re[j]), te[j]);
-      const float dn = __fsub_rn(__fadd_rn(nhe[j], nre[j]), nte[j]);
-      if (MODE == L1) {
-        sp = __fadd_rn(sp, fabsf(dp));
-        sn = __fadd_rn(sn, fabsf(dn));
-      } else {
-        sp = __fadd_rn(sp, __fmul_rn(dp, dp));
-        sn = __fadd_rn(sn, __fmul_rn(dn, dn));
-      }
-    }
-  }
-  sp = warp_sum(sp);
-  sn = warp_sum(sn);
-  float np_ = 1.f, nn_ = 1.f;
-  if (MODE == L1) {
-    sp = -sp;
-    sn = -sn;
-  } else if (MODE == L2) {
-    np_ = __fsqrt_rn(__fadd_rn(sp, 1e-12f));
-    nn_ = __fsqrt_rn(__fadd_rn(sn, 1e-12f));
-    sp = -np_;
-    sn = -nn_;
-  }
-  const float act = __fadd_rn(__fsub_rn(margin, sp), sn);
-  // dL/ds_pos = -a, dL/ds_neg = +a with a = 1[act > 0] / B
-  const float a = act > 0.f ? __fdiv_rn(1.0f, (float)B) : 0.f;
-  if (lane == 0) hinge[row] = isnan(act) ? act : fmaxf(act, 0.f);
-
-  // per-occurrence gradients (the rows are re-read: they sit in L1)
-  float* ge_h = g_e + (size_t)row * d;
-  float* ge_t = g_e + (size_t)(B + row) * d;
-  float* ge_nh = g_e + (size_t)(2 * B + row) * d;
-  float* ge_nt = g_e + (size_t)(3 * B + row) * d;
-  float* gr_p = g_r + (size_t)row * d;
-  float* gr_n = g_r + (size_t)(B + row) * d;
-  const float na = -a;
-  for (int j = lane; j < d; j += 32) {
-    if (MODE == DOT) {
-      ge_h[j] = __fmul_rn(na, __fmul_rn(re[j], te[j]));
-      ge_t[j] = __fmul_rn(na, __fmul_rn(he[j], re[j]));
-      gr_p[j] = __fmul_rn(na, __fmul_rn(he[j], te[j]));
-      ge_nh[j] = __fmul_rn(a, __fmul_rn(nre[j], nte[j]));
-      ge_nt[j] = __fmul_rn(a, __fmul_rn(nhe[j], nre[j]));
-      gr_n[j] = __fmul_rn(a, __fmul_rn(nhe[j], nte[j]));
-    } else {
-      const float dp = __fsub_rn(__fadd_rn(he[j], re[j]), te[j]);
-      const float dn = __fsub_rn(__fadd_rn(nhe[j], nre[j]), nte[j]);
-      float gp, gn;
-      if (MODE == L1) {
-        gp = sign_of(dp);
-        gn = sign_of(dn);
-      } else {
-        gp = __fdiv_rn(dp, np_);
-        gn = __fdiv_rn(dn, nn_);
-      }
-      // s_pos = -||h + r - t||: d s_pos/dh = -g, d/dt = +g, d/dr = -g
-      const float ap = __fmul_rn(a, gp), an = __fmul_rn(a, gn);
-      ge_h[j] = ap;
-      ge_t[j] = -ap;
-      gr_p[j] = ap;
-      ge_nh[j] = -an;
-      ge_nt[j] = an;
-      gr_n[j] = -an;
-    }
-  }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
 }
 
-// Row id of entity occurrence k of [pos_h | pos_t | neg_h | neg_t].
-__device__ __forceinline__ int64_t ent_occ(const int64_t* pos, const int64_t* neg, int k,
-                                           int B) {
-  const int q = k / B, i = k - q * B;
-  return (q < 2 ? pos : neg)[3 * i + ((q & 1) ? 2 : 0)];
+// Occurrence o of a step (slot o / B: 0 pos_h, 1 pos_t, 2 neg_h, 3 neg_t,
+// 4 pos_r, 5 neg_r; batch row o % B): its offset in the step's pos (when
+// `neg` is false) or neg ids.
+__device__ __forceinline__ int occ_offset(int o, int B, bool& neg) {
+  const int slot = o / B, i = o - slot * B;
+  neg = slot == 2 || slot == 3 || slot == 5;
+  const int col = slot >= 4 ? 1 : (slot & 1) ? 2 : 0;
+  return 3 * i + col;
 }
 
-// Row id of relation occurrence k of [pos_r | neg_r].
-__device__ __forceinline__ int64_t rel_occ(const int64_t* pos, const int64_t* neg, int k,
-                                           int B) {
-  return k < B ? pos[3 * k + 1] : neg[3 * (k - B) + 1];
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
-// Warp-wide: occurrence k of the n ids in `ids` (shared memory) owns its row
-// iff no earlier occurrence names the same id; the owner sums the gradient
-// rows of every occurrence of that id in ascending order into `acc` (d
-// floats of shared memory, column c touched only by lane c % 32) and
-// writes the row once.
-__device__ __forceinline__ void own_row(float* __restrict__ table, const float* __restrict__ g,
-                                        const int* ids, int k, int n, int d, float lr,
-                                        float* acc, int lane) {
-  const int id = ids[k];
-  for (int j0 = 0; j0 < k; j0 += 32) {
-    const int j = j0 + lane;
-    if (__any_sync(FULL, j < k && ids[j] == id)) return;  // an earlier occurrence owns it
-  }
-  for (int c = lane; c < d; c += 32) acc[c] = 0.f;
-  for (int j0 = k; j0 < n; j0 += 32) {
-    const int j = j0 + lane;
-    unsigned m = __ballot_sync(FULL, j < n && ids[j] == id);
-    while (m) {
-      const int b = __ffs(m) - 1;
-      m &= m - 1;
-      const float* gj = g + (size_t)(j0 + b) * d;
-      for (int c = lane; c < d; c += 32) acc[c] = __fadd_rn(acc[c], gj[c]);
-    }
-  }
-  float* out = table + (size_t)id * d;
-  for (int c = lane; c < d; c += 32) out[c] = __fsub_rn(out[c], __fmul_rn(lr, acc[c]));
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Dynamic shared memory of the scatter launch: 6B ids, then one d-float
-// accumulator row per warp.
-inline size_t scatter_smem(int B, int d) {
-  return (size_t)6 * B * sizeof(int) + (size_t)WARPS * d * sizeof(float);
+// Copy one step's ids, [pos (3B) | neg (3B)], into shared memory (cp.async).
+__device__ __forceinline__ void copy_ids(int64_t* next, const int64_t* pos, const int64_t* neg,
+                                         int n3) {
+  for (int k = threadIdx.x; k < 2 * n3; k += THREADS)
+    cp_async8(next + k, k < n3 ? pos + k : neg + (k - n3));
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
-scatter_kernel(float* __restrict__ ent, float* __restrict__ rel,
-               const int64_t* __restrict__ pos, const int64_t* __restrict__ neg,
-               const float* __restrict__ g_e, const float* __restrict__ g_r,
-               const float* __restrict__ hinge, float* __restrict__ loss, int B, int d,
-               float lr) {
+template <int MODE, bool DSMEM>
+__global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   extern __shared__ float4 smem4[];
-  int* ids = reinterpret_cast<int*>(smem4);  // [4B entity ids | 2B relation ids]
-  float* acc = reinterpret_cast<float*>(ids + 6 * B) + (size_t)(threadIdx.x >> 5) * d;
-  const int ne = 4 * B, nr = 2 * B;
-  for (int k = threadIdx.x; k < ne + nr; k += blockDim.x)
-    ids[k] = (int)(k < ne ? ent_occ(pos, neg, k, B) : rel_occ(pos, neg, k - ne, B));
+  char* base = reinterpret_cast<char*>(smem4);
+  const int B = a.B, d = a.d, n6 = 6 * B, rpb = a.rpb;
+  int64_t* next = reinterpret_cast<int64_t*>(base);  // [pos (3B) | neg (3B)] of the next step
+  float* grads = reinterpret_cast<float*>(base + (DSMEM ? (size_t)n6 * sizeof(int64_t) : 0));
+  float* vals = grads + (DSMEM ? (size_t)6 * rpb * d : 0);  // the rows as gathered
+  float* hinge = vals + (DSMEM ? (size_t)6 * rpb * d : 0);
+  int* occ = reinterpret_cast<int*>(hinge + rpb);  // the step's ids, by occurrence
+  int* src = occ + n6;  // each occurrence's place in a step's ids
+  int* loc = src + n6;  // its block (<< 16) and row of grads / vals there
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = rank * rpb, row1 = min(B, row0 + rpb), nrows = max(row1 - row0, 0);
+  const int n3 = 3 * B;
+
+  // The occurrence lists of step `st` -- entities [0, 4B), relations [4B, 6B)
+  // -- from its ids in shared memory (or global memory).
+  // Where occurrence o's id sits in a step's [pos (3B) | neg (3B)]; with
+  // distributed shared memory, kept for every o (it is the same each step),
+  // with the block that keeps its gradient row and the row there.
+  auto place = [&](int o) {
+    bool is_neg;
+    const int k = occ_offset(o, B, is_neg);
+    return (is_neg ? n3 : 0) + k;
+  };
+  if (DSMEM) {
+    for (int o = threadIdx.x; o < n6; o += THREADS) {
+      src[o] = place(o);
+      const int slot = o / B, i = o - slot * B, blk = i / rpb;
+      loc[o] = (blk << 16) | (slot * rpb + i - blk * rpb);
+    }
+    __syncthreads();
+  }
+  auto convert = [&](int st) {
+    const int64_t* ids = a.pos + (size_t)st * n3;  // neg follows at a.neg
+    for (int o = threadIdx.x; o < n6; o += THREADS) {
+      const int k = DSMEM ? src[o] : place(o);
+      const int64_t id = DSMEM ? next[k] : k < n3 ? ids[k] : a.neg[(size_t)st * n3 + k - n3];
+      assert(id >= 0 && id < (o >= 4 * B ? a.R : a.E));
+      occ[o] = (int)id;
+    }
+  };
+
+  if (DSMEM) {
+    copy_ids(next, a.pos, a.neg, n3);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+  }
+  convert(0);
   __syncthreads();
-  const int w = (int)((blockIdx.x * (unsigned)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (w < ne) {
-    own_row(ent, g_e, ids, w, ne, d, lr, acc, lane);
-  } else if (w < ne + nr) {
-    own_row(rel, g_r, ids + ne, w - ne, nr, d, lr, acc, lane);
-  } else if (w == ne + nr) {
-    // loss = mean of the hinges, summed in a fixed order
-    float s = 0.f;
-    for (int i = lane; i < B; i += 32) s = __fadd_rn(s, hinge[i]);
-    s = warp_sum(s);
-    if (lane == 0) loss[0] = __fdiv_rn(s, (float)B);
+  if (DSMEM && a.nb > 1) copy_ids(next, a.pos + n3, a.neg + n3, n3);
+  cluster.sync();  // every block of the cluster runs before any reads another's memory
+
+  for (int step = 0; step < a.nb; ++step) {
+    // ---- (a) gradients of this block's batch rows, one warp a row. Columns go
+    // in groups of 128, four a lane, so that a group's loads are all in flight
+    // together (the stores of one group may alias the loads of the next).
+    for (int i = row0 + warp; i < row1; i += WARPS) {
+      const int li = i - row0;
+      const float* rows[6] = {
+          a.ent + (size_t)occ[i] * d,         a.ent + (size_t)occ[B + i] * d,
+          a.ent + (size_t)occ[2 * B + i] * d, a.ent + (size_t)occ[3 * B + i] * d,
+          a.rel + (size_t)occ[4 * B + i] * d, a.rel + (size_t)occ[5 * B + i] * d};
+      // slot s of this row: [h, t, nh, nt, r, nr]; its gathered rows in shared memory
+      float* slot[6];
+      float* vslot[6];
+#pragma unroll
+      for (int s = 0; s < 6; ++s) {
+        slot[s] = DSMEM ? grads + ((size_t)s * rpb + li) * d : a.grads + ((size_t)s * B + i) * d;
+        vslot[s] = vals + ((size_t)s * rpb + li) * d;
+      }
+      // scores: lane sums its columns in ascending order, then the warp sums
+      float sp = 0.f, sn = 0.f;
+      for (int c0 = 0; c0 < d; c0 += 128) {
+        float v[6][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = c0 + 32 * u + lane;
+#pragma unroll
+          for (int s = 0; s < 6; ++s) v[s][u] = j < d ? __ldcg(rows[s] + j) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = c0 + 32 * u + lane;
+          if (j >= d) continue;
+          if (DSMEM) {  // kept for the gradients below and for the owners' updates
+#pragma unroll
+            for (int s = 0; s < 6; ++s) vslot[s][j] = v[s][u];
+          }
+          const float he = v[0][u], te = v[1][u], nhe = v[2][u], nte = v[3][u];
+          const float re = v[4][u], nre = v[5][u];
+          if (MODE == DOT) {
+            sp = __fadd_rn(sp, __fmul_rn(__fmul_rn(he, re), te));
+            sn = __fadd_rn(sn, __fmul_rn(__fmul_rn(nhe, nre), nte));
+          } else {
+            const float dp = __fsub_rn(__fadd_rn(he, re), te);
+            const float dn = __fsub_rn(__fadd_rn(nhe, nre), nte);
+            if (MODE == L1) {
+              sp = __fadd_rn(sp, fabsf(dp));
+              sn = __fadd_rn(sn, fabsf(dn));
+            } else {
+              sp = __fadd_rn(sp, __fmul_rn(dp, dp));
+              sn = __fadd_rn(sn, __fmul_rn(dn, dn));
+            }
+          }
+        }
+      }
+      sp = warp_sum(sp);
+      sn = warp_sum(sn);
+      float np_ = 1.f, nn_ = 1.f;
+      if (MODE == L1) {
+        sp = -sp;
+        sn = -sn;
+      } else if (MODE == L2) {
+        np_ = __fsqrt_rn(__fadd_rn(sp, 1e-12f));
+        nn_ = __fsqrt_rn(__fadd_rn(sn, 1e-12f));
+        sp = -np_;
+        sn = -nn_;
+      }
+      const float act = __fadd_rn(__fsub_rn(a.margin, sp), sn);
+      // dL/ds_pos = -w, dL/ds_neg = +w with w = 1[act > 0] / B
+      const float w = act > 0.f ? __fdiv_rn(1.0f, (float)B) : 0.f;
+      if (lane == 0) hinge[li] = isnan(act) ? act : fmaxf(act, 0.f);
+      const float nw = -w;
+      for (int c0 = 0; c0 < d; c0 += 128) {
+        float v[6][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = c0 + 32 * u + lane;
+#pragma unroll
+          for (int s = 0; s < 6; ++s)
+            v[s][u] = j >= d ? 0.f : DSMEM ? vslot[s][j] : __ldcg(rows[s] + j);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = c0 + 32 * u + lane;
+          if (j >= d) continue;
+          const float he = v[0][u], te = v[1][u], nhe = v[2][u], nte = v[3][u];
+          const float re = v[4][u], nre = v[5][u];
+          float g[6];
+          if (MODE == DOT) {
+            g[0] = __fmul_rn(nw, __fmul_rn(re, te));
+            g[1] = __fmul_rn(nw, __fmul_rn(he, re));
+            g[4] = __fmul_rn(nw, __fmul_rn(he, te));
+            g[2] = __fmul_rn(w, __fmul_rn(nre, nte));
+            g[3] = __fmul_rn(w, __fmul_rn(nhe, nre));
+            g[5] = __fmul_rn(w, __fmul_rn(nhe, nte));
+          } else {
+            const float dp = __fsub_rn(__fadd_rn(he, re), te);
+            const float dn = __fsub_rn(__fadd_rn(nhe, nre), nte);
+            float gp, gn;
+            if (MODE == L1) {
+              gp = sign_of(dp);
+              gn = sign_of(dn);
+            } else {
+              gp = __fdiv_rn(dp, np_);
+              gn = __fdiv_rn(dn, nn_);
+            }
+            // s_pos = -||h + r - t||: d s_pos/dh = -g, d/dt = +g, d/dr = -g
+            const float ap = __fmul_rn(w, gp), an = __fmul_rn(w, gn);
+            g[0] = ap; g[1] = -ap; g[4] = ap;
+            g[2] = -an; g[3] = an; g[5] = -an;
+          }
+#pragma unroll
+          for (int s = 0; s < 6; ++s) {
+            if (DSMEM) slot[s][j] = g[s];
+            else __stcg(slot[s] + j, g[s]);
+          }
+        }
+      }
+    }
+    cluster_arrive();  // this block's gradients are written
+    if (step + 1 < a.nb) {
+      // meanwhile: bring the rows of this block's batch rows of the next step
+      // into L2, so that its gather does not wait on device memory
+      const int64_t* npos = a.pos + (size_t)(step + 1) * n3;
+      const int64_t* nneg = a.neg + (size_t)(step + 1) * n3;
+      if (DSMEM) {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();
+      }
+      const int lines = (d * (int)sizeof(float) + 127) / 128 + 1;
+      for (int e = threadIdx.x; e < 6 * nrows * lines; e += THREADS) {
+        const int r = e / lines, ln = e - r * lines;
+        const int s = r / nrows, i = row0 + r - s * nrows;
+        const int k = DSMEM ? src[s * B + i] : place(s * B + i);
+        const int64_t id = DSMEM ? next[k] : k < n3 ? npos[k] : nneg[k - n3];
+        const char* row = reinterpret_cast<const char*>((s >= 4 ? a.rel : a.ent) + id * d);
+        const char* line = reinterpret_cast<const char*>(
+            (reinterpret_cast<uintptr_t>(row) & ~(uintptr_t)127) + 128 * ln);
+        if (line < row + d * sizeof(float))
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(line));
+      }
+    }
+    cluster_wait();
+
+    // ---- (b) a block owns the occurrences of its own batch rows, one warp
+    // each: what the first occurrence of an id needs of itself is in the
+    // block's shared memory, and only repeated ids read another block's.
+    // Block 0 also sums the loss.
+    for (int tk = warp; tk < 6 * nrows + (rank == 0); tk += WARPS) {
+      if (tk == 6 * nrows) {  // loss = mean of the hinges, summed in a fixed order
+        float s = 0.f;
+        for (int i = lane; i < B; i += 32)
+          s = __fadd_rn(s, *cluster.map_shared_rank(hinge + (i % rpb), i / rpb));
+        s = warp_sum(s);
+        if (lane == 0) a.losses[step] = __fdiv_rn(s, (float)B);
+        continue;
+      }
+      const int slot_k = tk / nrows, li = tk - slot_k * nrows;
+      const int k = slot_k * B + row0 + li;  // the occurrence: slot, batch row
+      const bool is_rel = slot_k >= 4;
+      const int* ids = is_rel ? occ + 4 * B : occ;  // this occurrence's list
+      const int o0 = is_rel ? 4 * B : 0;            // its first occurrence
+      const int n = is_rel ? 2 * B : 4 * B;
+      const int kk = k - o0;
+      const int id = ids[kk];
+      float* out = (is_rel ? a.rel : a.ent) + (size_t)id * d;
+      // the row as the step found it: the copy this occurrence gathered, in
+      // this block's shared memory (else from L2); in flight meanwhile
+      const float* found = DSMEM ? vals + ((size_t)slot_k * rpb + li) * d : out;
+      float row[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = 32 * u + lane;
+        row[u] = c >= d ? 0.f : DSMEM ? found[c] : __ldcg(out + c);
+      }
+      bool owned = true;  // no earlier occurrence names the id (128 a round)
+      for (int j0 = 0; j0 < kk && owned; j0 += 128) {
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + 32 * u + lane;
+          hit |= j < kk && ids[j] == id;
+        }
+        owned = !__any_sync(FULL, hit);
+      }
+      if (!owned) continue;
+      for (int c0 = 0; c0 < d; c0 += 128) {
+        float acc[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = c0 + 32 * u + lane;
+          if (c0 > 0) row[u] = c >= d ? 0.f : DSMEM ? found[c] : __ldcg(out + c);
+          acc[u] = 0.f;
+        }
+        // the gradients of every occurrence of the id, in ascending occurrence order
+        for (int j0 = kk; j0 < n; j0 += 128) {
+          unsigned mm[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + 32 * u + lane;
+            mm[u] = __ballot_sync(FULL, j < n && ids[j] == id);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            unsigned m = mm[u];
+            while (m) {
+              const int o = o0 + j0 + 32 * u + __ffs(m) - 1;
+              m &= m - 1;
+              float g[4];
+              if (DSMEM) {
+                const int at = loc[o], blk = at >> 16;
+                const float* gj = grads + (size_t)(at & 0xffff) * d;
+                if (blk != rank) gj = cluster.map_shared_rank(gj, blk);
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                  const int c = c0 + 32 * v + lane;
+                  g[v] = c < d ? gj[c] : 0.f;
+                }
+              } else {
+                const float* gj = a.grads + (size_t)o * d;
+#pragma unroll
+                for (int v = 0; v < 4; ++v) {
+                  const int c = c0 + 32 * v + lane;
+                  g[v] = c < d ? __ldcg(gj + c) : 0.f;
+                }
+              }
+#pragma unroll
+              for (int v = 0; v < 4; ++v) acc[v] = __fadd_rn(acc[v], g[v]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int c = c0 + 32 * u + lane;
+          if (c < d) __stcg(out + c, __fsub_rn(row[u], __fmul_rn(a.lr, acc[u])));
+        }
+      }
+    }
+    cluster_arrive();  // the rows are written, the other blocks' gradients read
+    if (step + 1 < a.nb) {  // meanwhile: the next step's occurrence lists
+      __syncthreads();      // this block is done with this step's
+      convert(step + 1);
+      __syncthreads();
+      if (DSMEM && step + 2 < a.nb)
+        copy_ids(next, a.pos + (size_t)(step + 2) * n3, a.neg + (size_t)(step + 2) * n3, n3);
+    }
+    cluster_wait();
   }
 }
 
-template <int MODE>
-int launch(float* ent, float* rel, const int64_t* pos, const int64_t* neg, float* g_e,
-           float* g_r, float* hinge, float* loss, int B, int64_t E, int64_t R, int d, float lr,
-           float margin, cudaStream_t s) {
-  const int blocks_a = (B + WARPS - 1) / WARPS;
-  grads_kernel<MODE><<<blocks_a, THREADS, 0, s>>>(ent, rel, pos, neg, g_e, g_r, hinge, B, E,
-                                                  R, d, margin);
-  cudaError_t err = cudaGetLastError();
+template <int MODE, bool DSMEM>
+int launch(const Args& a, int cluster_blocks, cudaStream_t s) {
+  auto kern = epoch_kernel<MODE, DSMEM>;
+  const size_t smem = smem_bytes(a.B, a.d, a.rpb, DSMEM);
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int warps_b = 6 * B + 1;
-  const int blocks_b = (warps_b + WARPS - 1) / WARPS;
-  const size_t smem = scatter_smem(B, d);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  if (cluster_blocks > 8) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
-  scatter_kernel<<<blocks_b, THREADS, smem, s>>>(ent, rel, pos, neg, g_e, g_r, hinge, loss, B,
-                                                 d, lr);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster_blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster_blocks, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;  // the cluster cannot be placed
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -277,28 +503,41 @@ inline int on_device(int device, F&& fn) {
 
 }  // namespace sparse_update
 
-extern "C" int sparse_update_step(void* ent, void* rel, const void* pos, const void* neg,
-                                  void* g_e, void* g_r, void* hinge, void* loss, int B,
-                                  long long E, long long R, int d, float lr, float margin,
-                                  int mode, int device, void* stream) {
+// Shared memory one block of a `cluster_blocks` cluster needs for batch B at
+// width d, with the gradient rows in distributed shared memory (dsmem != 0)
+// or in the global buffer.
+extern "C" long long sparse_update_smem_bytes(int B, int d, int cluster_blocks, int dsmem) {
+  const int rpb = (B + cluster_blocks - 1) / cluster_blocks;
+  return (long long)sparse_update::smem_bytes(B, d, rpb, dsmem != 0);
+}
+
+// nb steps over pos / neg (nb, B, 3) int64, in place on ent (E, d) and rel
+// (R, d), losses (nb,); grads is a (6B, d) float buffer, or null to keep the
+// gradient rows in the cluster's shared memory.
+extern "C" int sparse_update_epoch(void* ent, void* rel, const void* pos, const void* neg,
+                                   void* losses, void* grads, int nb, int B, long long E,
+                                   long long R, int d, float lr, float margin, int mode,
+                                   int cluster_blocks, int device, void* stream) {
   using namespace sparse_update;
-  if (B <= 0 || d <= 0 || E <= 0 || R <= 0 || E > INT32_MAX || R > INT32_MAX ||
-      scatter_smem(B, d) > SMEM_LIMIT)
+  if (nb <= 0 || B <= 0 || d <= 0 || E <= 0 || R <= 0 || E > INT32_MAX || R > INT32_MAX ||
+      cluster_blocks < 1 || cluster_blocks > 16)
     return (int)cudaErrorInvalidValue;
+  const bool dsmem = grads == nullptr;
+  const int rpb = (B + cluster_blocks - 1) / cluster_blocks;
+  if (smem_bytes(B, d, rpb, dsmem) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  Args a{static_cast<float*>(ent), static_cast<float*>(rel),
+         static_cast<const int64_t*>(pos), static_cast<const int64_t*>(neg),
+         static_cast<float*>(losses), static_cast<float*>(grads), E, R, nb, B, d, rpb, lr,
+         margin};
   auto s = static_cast<cudaStream_t>(stream);
-  auto ef = static_cast<float*>(ent);
-  auto rf = static_cast<float*>(rel);
-  auto pi = static_cast<const int64_t*>(pos);
-  auto ni = static_cast<const int64_t*>(neg);
-  auto ge = static_cast<float*>(g_e);
-  auto gr = static_cast<float*>(g_r);
-  auto hi = static_cast<float*>(hinge);
-  auto lo = static_cast<float*>(loss);
   return on_device(device, [&]() -> int {
-    switch (mode) {
-      case L1: return launch<L1>(ef, rf, pi, ni, ge, gr, hi, lo, B, E, R, d, lr, margin, s);
-      case L2: return launch<L2>(ef, rf, pi, ni, ge, gr, hi, lo, B, E, R, d, lr, margin, s);
-      case DOT: return launch<DOT>(ef, rf, pi, ni, ge, gr, hi, lo, B, E, R, d, lr, margin, s);
+    switch (mode * 2 + (dsmem ? 1 : 0)) {
+      case 2 * L1 + 1: return launch<L1, true>(a, cluster_blocks, s);
+      case 2 * L1: return launch<L1, false>(a, cluster_blocks, s);
+      case 2 * L2 + 1: return launch<L2, true>(a, cluster_blocks, s);
+      case 2 * L2: return launch<L2, false>(a, cluster_blocks, s);
+      case 2 * DOT + 1: return launch<DOT, true>(a, cluster_blocks, s);
+      case 2 * DOT: return launch<DOT, false>(a, cluster_blocks, s);
       default: return (int)cudaErrorInvalidValue;
     }
   });

@@ -1,19 +1,24 @@
-"""Public wrapper of the fused sparse SGD step (csrc/sparse_step.cu).
+"""Public wrappers of the fused sparse SGD kernel (csrc/sparse_step.cu).
 
-``fused_sparse_step`` applies one margin-ranking SGD step for TransE l1/l2
-or DistMult to the {ent, rel} tables, touching only the rows the minibatch
-names, and updates them **in place** (the JAX kernel aliases them in and out
-for the same reason). Duplicate rows within a batch compose into one update.
+``fused_sparse_epoch`` applies ``nb`` consecutive margin-ranking SGD steps
+for TransE l1/l2 or DistMult to the {ent, rel} tables over pre-built
+``(nb, B, 3)`` batches -- the JAX package's ``lax.scan`` of its Pallas step
+-- touching only the rows each minibatch names, and updates them **in
+place** (the JAX kernel aliases them in and out for the same reason).
+Duplicate rows within a batch compose into one update; step i + 1 sees the
+rows step i wrote. ``fused_sparse_step`` is the ``nb = 1`` case.
 
-For CUDA tensors it launches the kernel or raises; for CPU tensors it takes
-``sparse_step_plain``, the same math in plain PyTorch. ``LAUNCHES`` counts
-kernel launches, so a run can show its main path went through the kernel.
+For CUDA tensors they launch the kernel (one launch for the whole epoch) or
+raise; for CPU tensors they take ``sparse_epoch_plain`` / ``sparse_step_plain``,
+the same math in plain PyTorch. ``LAUNCHES`` counts kernel launches and
+``STEPS`` the steps they ran, so a run can show its main path went through
+the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -28,29 +33,48 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 STEP_LIB = CudaLibrary("sparse_update_step", _CSRC / "sparse_step.cu")
 LIBRARIES = (STEP_LIB,)
 
-#: kernel launches (one per step) since the last ``reset_launches``
+#: kernel launches (one per epoch, or per lone step) since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"sparse_sgd_step": 0}
+#: SGD steps those launches ran
+STEPS: Dict[str, int] = {"sparse_sgd_step": 0}
 
-_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SIGNATURE = [_VP] * 8 + [_I, _LL, _LL, _I, _F, _F, _I, _I, _VP]
-
-#: the scatter launch stages 6B int32 ids and 8 warps' d-float accumulators
-#: in shared memory, at most what a Hopper block may opt in to
+#: blocks of the one thread-block cluster an epoch runs on: 16, which needs
+#: the non-portable opt-in (the kernel makes it), measured faster than the
+#: portable 8 on the H100 (PERF.md)
+CLUSTER_BLOCKS = 16
+#: the shared memory a Hopper block may opt in to
 _SMEM_LIMIT = 232_448
 
+_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURE = [_VP] * 6 + [_I, _I, _LL, _LL, _I, _F, _F, _I, _I, _I, _VP]
 
-def _scatter_smem(b: int, d: int) -> int:
-    return 4 * 6 * b + 4 * 8 * d
+
+def smem_bytes(b: int, d: int, cluster: int, dsmem: bool) -> int:
+    """Shared memory of one block (the kernel's ``smem_bytes``): with
+    ``dsmem`` the next step's ids (int64), the block's gradient rows and the
+    rows it gathered, where each occurrence's id sits in a step's ids and
+    its place among the rows; always the hinges and the occurrence ids."""
+    rpb = -(-b // cluster)
+    n = 16 * 6 * b + 4 * 12 * rpb * d if dsmem else 0
+    return n + 4 * rpb + 4 * 6 * b
 
 
-#: per-(device, stream, B, d) gradient scratch: (4B, d), (2B, d), hinges (B,).
-#: Steps on one stream run in order, so one scratch serves all of them.
-_SCRATCH: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+def grads_in_dsmem(b: int, d: int, cluster: int = CLUSTER_BLOCKS) -> bool:
+    """Whether a batch keeps its gradient rows in the cluster's shared memory
+    (else in a global buffer); raises when it fits neither way."""
+    if smem_bytes(b, d, cluster, True) <= _SMEM_LIMIT:
+        return True
+    if smem_bytes(b, d, cluster, False) <= _SMEM_LIMIT:
+        return False
+    raise ValueError(f"fused_sparse_epoch: B={b}, d={d} needs "
+                     f"{smem_bytes(b, d, cluster, False)} bytes of shared memory per "
+                     f"block, over {_SMEM_LIMIT}")
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        STEPS[k] = 0
 
 
 def build_kernels() -> Dict[str, str]:
@@ -60,7 +84,7 @@ def build_kernels() -> Dict[str, str]:
 
 def _entry():
     cdll = STEP_LIB.load()
-    fn = cdll.sparse_update_step
+    fn = cdll.sparse_update_epoch
     if fn.argtypes is None:
         fn.argtypes = _SIGNATURE
         fn.restype = ctypes.c_int
@@ -69,36 +93,28 @@ def _entry():
     return fn, cdll
 
 
-def _check_inputs(ent, rel, pos, neg) -> torch.device:
-    """Device of the inputs; raises on what the kernel does not take."""
+def _check_inputs(ent, rel, pos, neg, what: str) -> torch.device:
+    """Device of the inputs; raises on what the kernel does not take.
+    ``pos`` and ``neg`` are (nb, B, 3)."""
     named = {"ent": ent, "rel": rel, "pos": pos, "neg": neg}
     devs = {t.device for t in named.values()}
     if len(devs) != 1:
-        raise ValueError(f"fused_sparse_step: inputs on different devices "
-                         f"{sorted(map(str, devs))}")
+        raise ValueError(f"{what}: inputs on different devices {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_sparse_step: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     if ent.dim() != 2 or rel.dim() != 2 or ent.shape[1] != rel.shape[1]:
-        raise ValueError(f"fused_sparse_step: expected ent (E, d) and rel (R, d), got "
+        raise ValueError(f"{what}: expected ent (E, d) and rel (R, d), got "
                          f"{tuple(ent.shape)} and {tuple(rel.shape)}")
-    if pos.dim() != 2 or pos.shape[1] != 3 or neg.shape != pos.shape or pos.shape[0] == 0:
-        raise ValueError(f"fused_sparse_step: expected pos and neg (B, 3) with B >= 1, got "
-                         f"{tuple(pos.shape)} and {tuple(neg.shape)}")
     if dev.type == "cuda":
-        b, d = pos.shape[0], ent.shape[1]
-        if _scatter_smem(b, d) > _SMEM_LIMIT:
-            raise ValueError(f"fused_sparse_step: B={b}, d={d} needs "
-                             f"{_scatter_smem(b, d)} bytes of shared memory, over "
-                             f"{_SMEM_LIMIT}")
         if max(ent.shape[0], rel.shape[0]) >= 2 ** 31:
-            raise ValueError("fused_sparse_step: tables of 2**31 rows or more")
+            raise ValueError(f"{what}: tables of 2**31 rows or more")
         for name, t in named.items():
             want = torch.int64 if name in ("pos", "neg") else torch.float32
             if t.dtype != want:
-                raise TypeError(f"fused_sparse_step: {name} must be {want}, got {t.dtype}")
+                raise TypeError(f"{what}: {name} must be {want}, got {t.dtype}")
             if not t.is_contiguous():
-                raise ValueError(f"fused_sparse_step: {name} must be contiguous")
+                raise ValueError(f"{what}: {name} must be contiguous")
     return dev
 
 
@@ -162,49 +178,79 @@ def sparse_step_plain(ent, rel, pos, neg, lr: float, *, mode: str = "l1",
     return loss
 
 
-# ------------------------------------------------------------------ wrapper
-def _scratch(dev: torch.device, stream: int, b: int, d: int):
-    key = (dev, stream, b, d)
-    got = _SCRATCH.get(key)
-    if got is None:
-        got = (torch.empty(4 * b, d, dtype=torch.float32, device=dev),
-               torch.empty(2 * b, d, dtype=torch.float32, device=dev),
-               torch.empty(b, dtype=torch.float32, device=dev))
-        _SCRATCH[key] = got
-    return got
+def sparse_epoch_plain(ent, rel, pos, neg, lr: float, *, mode: str = "l1",
+                       margin: float = 4.0) -> torch.Tensor:
+    """The plain version of an epoch: ``sparse_step_plain`` over each of the
+    ``nb`` batches of ``pos`` and ``neg`` (nb, B, 3) in turn, in place.
+    Returns the step losses (nb,)."""
+    return torch.stack([sparse_step_plain(ent, rel, pos[i], neg[i], lr, mode=mode,
+                                          margin=margin) for i in range(pos.shape[0])])
 
 
-def fused_sparse_step(ent: torch.Tensor, rel: torch.Tensor, pos: torch.Tensor,
-                      neg: torch.Tensor, lr: float, *, mode: str = "l1",
-                      margin: float = 4.0):
-    """One fused gather→score→scatter SGD step → (ent, rel, loss): the same
-    two tables, updated in place, and the minibatch loss (0-dim, on their
-    device; reading it is the caller's choice of a sync).
+# ------------------------------------------------------------------ wrappers
+def fused_sparse_epoch(ent: torch.Tensor, rel: torch.Tensor, pos: torch.Tensor,
+                       neg: torch.Tensor, lr: float, *, mode: str = "l1",
+                       margin: float = 4.0, cluster: int = CLUSTER_BLOCKS) -> torch.Tensor:
+    """``nb`` fused gather→score→scatter SGD steps in one launch → the step
+    losses (nb,), on the tables' device (reading them is the caller's choice
+    of a sync). ``ent`` and ``rel`` are updated in place.
 
-    ``ent`` (E, d) and ``rel`` (R, d) float32; ``pos`` and ``neg`` (B, 3)
+    ``ent`` (E, d) and ``rel`` (R, d) float32; ``pos`` and ``neg`` (nb, B, 3)
     int64 ids, which must lie in range (on the card an id out of range
     trips a device-side assert). ``lr`` and ``margin`` are floats, rounded
-    to float32 as the JAX package rounds them. On the card the batch must
-    fit the kernel's shared memory, 24·B + 32·d bytes ≤ 227 KB (B ≤ 9,552
-    at d = 100)."""
+    to float32 as the JAX package rounds them. On the card the epoch runs on
+    one cluster of ``cluster`` blocks (16 or 8). A batch whose gradient rows
+    fit the cluster's shared memory (48·d·B/cluster + 120·B bytes per block,
+    the gradients and the gathered rows: B ≤ 544 at d = 100 with 16 blocks)
+    keeps them there; a larger one keeps them in a global buffer, and only
+    its ids and hinges stay in shared memory (24·B + 4·B/cluster bytes ≤
+    227 KB: B ≤ 9,585 with 16 blocks). Past that the wrapper raises."""
     if mode not in SPARSE_MODES:
         raise ValueError(f"unknown sparse mode {mode!r} {SPARSE_MODES}")
-    dev = _check_inputs(ent, rel, pos, neg)
+    if pos.dim() != 3 or pos.shape[2] != 3 or neg.shape != pos.shape or 0 in pos.shape[:2]:
+        raise ValueError(f"fused_sparse_epoch: expected pos and neg (nb, B, 3) with nb, B >= 1,"
+                         f" got {tuple(pos.shape)} and {tuple(neg.shape)}")
+    if cluster not in (8, 16):
+        raise ValueError(f"fused_sparse_epoch: cluster of {cluster} blocks (16 or 8)")
+    dev = _check_inputs(ent, rel, pos, neg, "fused_sparse_epoch")
     lr = float(lr)
     if dev.type == "cpu":
-        return ent, rel, sparse_step_plain(ent, rel, pos, neg, lr, mode=mode, margin=margin)
-    b, d = pos.shape[0], ent.shape[1]
-    loss = torch.empty((), dtype=torch.float32, device=dev)
+        return sparse_epoch_plain(ent, rel, pos, neg, lr, mode=mode, margin=margin)
+    nb, b = pos.shape[:2]
+    d = ent.shape[1]
+    losses = torch.empty(nb, dtype=torch.float32, device=dev)
+    grads = (None if grads_in_dsmem(b, d, cluster)
+             else torch.empty(6 * b, d, dtype=torch.float32, device=dev))
     fn, cdll = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        g_e, g_r, hinge = _scratch(dev, stream, b, d)
         rc = fn(ent.data_ptr(), rel.data_ptr(), pos.data_ptr(), neg.data_ptr(),
-                g_e.data_ptr(), g_r.data_ptr(), hinge.data_ptr(), loss.data_ptr(),
-                b, ent.shape[0], rel.shape[0], d, lr, float(margin), _MODE_IDS[mode],
+                losses.data_ptr(), None if grads is None else grads.data_ptr(), nb, b,
+                ent.shape[0], rel.shape[0], d, lr, float(margin), _MODE_IDS[mode], cluster,
                 dev.index, stream)
     if rc != 0:
         msg = cdll.sparse_update_error_string(rc).decode()
         raise RuntimeError(f"sparse_sgd_step kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES["sparse_sgd_step"] += 1
-    return ent, rel, loss
+    STEPS["sparse_sgd_step"] += nb
+    return losses
+
+
+def fused_sparse_step(ent: torch.Tensor, rel: torch.Tensor, pos: torch.Tensor,
+                      neg: torch.Tensor, lr: float, *, mode: str = "l1",
+                      margin: float = 4.0):
+    """One fused step → (ent, rel, loss): the same two tables, updated in
+    place, and the minibatch loss (0-dim, on their device). ``pos`` and
+    ``neg`` are (B, 3); on the card this is ``fused_sparse_epoch`` with
+    nb = 1, one launch, and the same limits on B."""
+    if mode not in SPARSE_MODES:
+        raise ValueError(f"unknown sparse mode {mode!r} {SPARSE_MODES}")
+    if pos.dim() != 2 or pos.shape[1] != 3 or neg.shape != pos.shape or pos.shape[0] == 0:
+        raise ValueError(f"fused_sparse_step: expected pos and neg (B, 3) with B >= 1, got "
+                         f"{tuple(pos.shape)} and {tuple(neg.shape)}")
+    if pos.device.type == "cpu":
+        _check_inputs(ent, rel, pos, neg, "fused_sparse_step")
+        return ent, rel, sparse_step_plain(ent, rel, pos, neg, float(lr), mode=mode,
+                                           margin=margin)
+    losses = fused_sparse_epoch(ent, rel, pos[None], neg[None], lr, mode=mode, margin=margin)
+    return ent, rel, losses[0]

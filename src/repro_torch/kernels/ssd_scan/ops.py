@@ -17,10 +17,12 @@ chunks (the JAX wrapper's ``lax.scan`` outside the kernel) and
 
 For CUDA tensors ``ssd_chunks`` launches the kernel or raises; for CPU
 tensors it takes ``ssd_chunks_plain``, the same arithmetic in plain
-PyTorch. Both take the in-chunk cumulative sum of ``dt · a`` in one fixed
-sequential order: at the full card ``cum`` reaches about −10³ within a
-chunk, where a different summation order moves ``exp(cum_s − cum_t)`` by
-about 1e-3 relative near the diagonal. ``LAUNCHES`` counts kernel launches.
+PyTorch. A block of the kernel serves one chunk of ``head_group`` heads and
+forms C·Bᵀ once for them. Both take the in-chunk cumulative sum of
+``dt · a`` in one fixed sequential order: at the full card ``cum`` reaches
+about −10³ within a chunk, where a different summation order moves
+``exp(cum_s − cum_t)`` by about 1e-3 relative near the diagonal.
+``LAUNCHES`` counts kernel launches.
 
 The JAX package's LM path never reaches its Pallas kernel (its
 ``models/ssm.py`` calls the jnp ``ssd``); the Pallas kernel computes the
@@ -29,15 +31,16 @@ same function, and the tests hold this port's kernel path against both.
 from __future__ import annotations
 
 import ctypes
+import math
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary
+from repro_torch.kernels._nvcc import SPLIT_TF32, CudaLibrary
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SSD_LIB = CudaLibrary("ssd_chunks", _CSRC / "ssd_chunks.cu")
+SSD_LIB = CudaLibrary("ssd_chunks", _CSRC / "ssd_chunks.cu", (SPLIT_TF32,))
 LIBRARIES = (SSD_LIB,)
 
 #: kernel launches since the last ``reset_launches``
@@ -48,7 +51,45 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 4096
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURE = [_VP] * 8 + [_I] * 6 + [_LL] * 22 + [_I, _VP]
+_SIGNATURE = [_VP] * 8 + [_I] * 7 + [_LL] * 22 + [_I, _VP]
+
+#: shared memory a Hopper block may opt in to; the kernel's tile layout
+#: (``Layout`` in csrc/ssd_chunks.cu): 64-row tiles, an S band of 256
+#: columns, C/B chunks of 32, a 128-column state pass
+_SMEM_LIMIT = 232_448
+_TS, _LDS, _LDK, _LDB = 64, 256 + 4, 32 + 4, 128 + 8
+_THREADS = 256
+
+
+def smem_bytes(p: int, g: int, q: int) -> int:
+    """Shared memory of one block for head dim ``p``, ``g`` heads and chunk
+    ``q`` (the kernel's ``smem_floats``): the larger of the y phase (the S
+    band, two C/B chunks of two buffers, two x tiles) and the state phase
+    (two x and two B tiles), then cum and dt of each head and one decay row."""
+    xt = _TS * (p + 8)
+    y_phase = _TS * _LDS + 4 * _TS * _LDK + 2 * xt
+    state_phase = 2 * xt + 2 * _TS * _LDB
+    return 4 * (max(y_phase, state_phase) + (2 * g + 1) * q)
+
+
+def head_group(b: int, h: int, nc: int, q: int, p: int, n: int, sms: int) -> int:
+    """Heads per block: the G that finishes the grid (ceil(H / G), NC, B) of
+    one-block-per-SM launches soonest on ``sms`` SMs. A wave costs G heads'
+    products plus the C·Bᵀ band the block forms once for them (``s_cost``
+    heads' worth); ties go to the smaller G. G is capped by shared memory
+    (cum and dt of G heads) and the block's 256 threads (one per head sums
+    cum)."""
+    head = q * q / 2 * p + q * p * n          # W·x over the triangle, and the state
+    s_cost = (q * q / 2 * n) / head            # C·Bᵀ over the triangle
+    best, best_cost = 1, math.inf
+    for g in range(1, min(h, _THREADS) + 1):
+        if smem_bytes(p, g, q) > _SMEM_LIMIT:
+            break
+        waves = -(-(-(-h // g) * nc * b) // sms)
+        cost = waves * (g + s_cost)
+        if cost < best_cost:
+            best, best_cost = g, cost
+    return best
 
 
 def reset_launches() -> None:
@@ -95,8 +136,8 @@ def _check_inputs(x, dt, a, bm, cm) -> torch.device:
                              f"({HEAD_DIMS})")
         if q > MAX_CHUNK:
             raise ValueError(f"ssd_chunks: chunk {q} longer than the kernel takes ({MAX_CHUNK})")
-        if b > 65_535 or h > 65_535:
-            raise ValueError(f"ssd_chunks: B={b}, H={h} exceed the kernel's grid")
+        if b > 65_535 or nc > 65_535:
+            raise ValueError(f"ssd_chunks: B={b}, NC={nc} exceed the kernel's grid")
     return dev
 
 
@@ -131,11 +172,32 @@ def ssd_chunks_plain(x, dt, a, bm, cm):
 
 
 # -------------------------------------------------------------- wrappers
+def _aligned_rows(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` (its last, contiguous dimension) starts on
+    16 bytes and can be read in whole 16-byte pieces."""
+    return (t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0
+            and all(st % 4 == 0 for st in t.stride()[:-1]))
+
+
+def _for_copies(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel's 16-byte copies can read its rows, else
+    a contiguous copy whose rows are zero-padded to a multiple of 4."""
+    if _aligned_rows(t):
+        return t
+    n = t.shape[-1]
+    out = t.new_zeros(*t.shape[:-1], -(-n // 4) * 4)
+    out[..., :n] = t
+    return out
+
+
 def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
-               cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               cm: torch.Tensor, *, group: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Intra-chunk SSD: (y_intra, chunk_state, exp(cum)); see the module
     docstring for the layout. On the card all inputs are float32, the last
-    dimension of x, B and C contiguous, P one of ``HEAD_DIMS``."""
+    dimension of x, B and C contiguous, P one of ``HEAD_DIMS``; views whose
+    rows the kernel's 16-byte copies cannot read are copied first.
+    ``group`` fixes the heads per block (default ``head_group``'s choice)."""
     dev = _check_inputs(x, dt, a, bm, cm)
     if dev.type == "cpu":
         return ssd_chunks_plain(x, dt, a, bm, cm)
@@ -147,6 +209,13 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Ten
     decay = torch.empty(b, nc, q, h, dtype=torch.float32, device=dev).permute(0, 3, 1, 2)
     if b * h * nc == 0:
         return y, state, decay
+    if group is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        group = head_group(b, h, nc, q, p, n, sms)
+    if not 1 <= group <= min(h, _THREADS) or smem_bytes(p, group, q) > _SMEM_LIMIT:
+        raise ValueError(f"ssd_chunks: {group} heads per block do not fit (H={h}, P={p}, "
+                         f"Q={q})")
+    x, bm, cm = _for_copies(x), _for_copies(bm), _for_copies(cm)
     a = a.reshape(h).contiguous()
     strides = [*x.stride()[:4], *dt.stride(), *bm.stride()[:3], *cm.stride()[:3],
                *y.stride()[:4], *decay.stride()]
@@ -154,7 +223,7 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Ten
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                y.data_ptr(), state.data_ptr(), decay.data_ptr(), b, h, nc, q, p, n,
+                y.data_ptr(), state.data_ptr(), decay.data_ptr(), b, h, nc, q, p, n, group,
                 *strides, dev.index, stream)
     if rc != 0:
         msg = cdll.ssd_chunks_error_string(rc).decode()

@@ -9,9 +9,11 @@ bucket-padded tables, the counterpart of the JAX package's ``kge/engine.py``.
   (``draws``) and otherwise draws them from a ``torch.Generator`` on the
   tables' device;
 * **sparse updates** — each step touches only the rows its minibatch names.
-  ``fused`` runs the ``sparse_update`` kernel (TransE/DistMult; its plain
-  version on CPU tables), ``sparse`` runs autograd over the gathered rows
-  (every family);
+  ``fused`` runs the ``sparse_update`` kernel (TransE/DistMult): the whole
+  epoch of steps in one launch on CUDA tables, as the JAX package scans its
+  Pallas step in one compiled program, and the kernel's plain version step
+  by step on CPU tables; ``sparse`` runs autograd over the gathered rows in
+  a Python loop of steps (every family);
 * **bucket padding** — tables round up to ``ENT_BUCKET``/``REL_BUCKET``
   multiples and the triple store to a power-of-two minibatch count, as in
   the JAX package, so the two run the same schedule on the same shapes.
@@ -31,7 +33,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.sparse_update import fused_sparse_step
+from repro_torch.kernels.sparse_update import fused_sparse_epoch
 from repro_torch.kge.models import (
     KGEModel,
     Params,
@@ -94,16 +96,23 @@ def sparse_sgd_step(params: Params, spec: KGEModel, pos: torch.Tensor,
     return params, loss.detach()
 
 
-def _fused_step(params: Params, spec: KGEModel, pos: torch.Tensor, neg: torch.Tensor,
-                lr: float) -> Tuple[Params, torch.Tensor]:
-    """Fused-kernel step for the {ent, rel}-only families."""
+def _fused_epoch(params: Params, spec: KGEModel, pos: torch.Tensor, neg: torch.Tensor,
+                 lr: float) -> torch.Tensor:
+    """All (nb, B, 3) batches of an epoch through the fused kernel, for the
+    {ent, rel}-only families → the step losses (nb,)."""
     mode = "dot" if spec.family == "distmult" else ("l2" if spec.norm_ord == 2 else "l1")
-    _, _, loss = fused_sparse_step(params["ent"], params["rel"], pos, neg, lr,
-                                   mode=mode, margin=spec.margin)
-    return params, loss
+    return fused_sparse_epoch(params["ent"], params["rel"], pos, neg, lr, mode=mode,
+                              margin=spec.margin)
 
 
-_STEPS = {"fused": _fused_step, "sparse": sparse_sgd_step}
+def _sparse_epoch_steps(params: Params, spec: KGEModel, pos: torch.Tensor,
+                        neg: torch.Tensor, lr: float) -> torch.Tensor:
+    """The autograd step over each batch in turn → the step losses (nb,)."""
+    return torch.stack([sparse_sgd_step(params, spec, pos[i], neg[i], lr)[1]
+                        for i in range(pos.shape[0])])
+
+
+_EPOCHS = {"fused": _fused_epoch, "sparse": _sparse_epoch_steps}
 
 
 def sparse_epoch(params: Params, spec: KGEModel, pos: torch.Tensor, neg: torch.Tensor,
@@ -111,10 +120,9 @@ def sparse_epoch(params: Params, spec: KGEModel, pos: torch.Tensor, neg: torch.T
     """One epoch of sparse steps over pre-built (nb, B, 3) batches, then the
     entity-norm projection: the sparse twin of the dense ``trainer._epoch``.
     Updates ``params`` in place; returns it and the mean step loss."""
-    losses = [sparse_sgd_step(params, spec, pos[i], neg[i], lr)[1]
-              for i in range(pos.shape[0])]
+    losses = _sparse_epoch_steps(params, spec, pos, neg, lr)
     params["ent"] = normalize_entities(params)["ent"]
-    return params, torch.stack(losses).mean()
+    return params, losses.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +160,22 @@ def draw_epoch(gen: torch.Generator, n_pad: int, nb: int, batch: int,
     return perm, corrupt_head, rand_ent
 
 
+def epoch_batches(triples: torch.Tensor, drawn: Draws,
+                  batch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One epoch's minibatches from its draws → (pos, neg), each (nb, B, 3)
+    and contiguous: the permuted store, and each positive with its head
+    (``corrupt_head``) or else its tail replaced by ``rand_ent``."""
+    perm, corrupt_head, rand_ent = drawn
+    nb = triples.shape[0] // batch
+    pos = triples[perm.long()].reshape(nb, batch, 3)
+    rand_ent = rand_ent.to(pos.dtype).reshape(nb, batch)
+    corrupt_head = corrupt_head.bool().reshape(nb, batch)
+    neg = torch.stack([torch.where(corrupt_head, rand_ent, pos[..., 0]),
+                       pos[..., 1],
+                       torch.where(corrupt_head, pos[..., 2], rand_ent)], dim=-1)
+    return pos, neg
+
+
 def train_scan_graph(
     params: Params,
     triples: torch.Tensor,       # (N_pad, 3) int64, N_pad % batch == 0, cycled
@@ -179,11 +203,11 @@ def train_scan_graph(
     ``sparse`` projects, at the start of each epoch but the first, only the
     rows that epoch gathers, and the whole table once at the end.
     """
-    if impl not in _STEPS:
-        raise ValueError(f"unknown step impl {impl!r} {tuple(_STEPS)}")
+    if impl not in _EPOCHS:
+        raise ValueError(f"unknown step impl {impl!r} {tuple(_EPOCHS)}")
     if renorm not in ("dense", "sparse"):
         raise ValueError(f"unknown renorm schedule {renorm!r} (dense|sparse)")
-    step = _STEPS[impl]
+    run_epoch = _EPOCHS[impl]
     dev = params["ent"].device
     n_pad = triples.shape[0]
     nb = n_pad // batch
@@ -192,23 +216,17 @@ def train_scan_graph(
     means = []
     for epoch in range(epochs):
         if draws is None:
-            perm, corrupt_head, rand_ent = draw_epoch(generator, n_pad, nb, batch,
-                                                      num_entities)
+            drawn = draw_epoch(generator, n_pad, nb, batch, num_entities)
         else:
-            perm, corrupt_head, rand_ent = (as_device(x, dev) for x in draws[epoch])
-        pos = triples[perm.long()].reshape(nb, batch, 3)
-        rand_ent = rand_ent.to(pos.dtype).reshape(nb, batch)
-        corrupt_head = corrupt_head.bool().reshape(nb, batch)
-        neg = torch.stack([torch.where(corrupt_head, rand_ent, pos[..., 0]),
-                           pos[..., 1],
-                           torch.where(corrupt_head, pos[..., 2], rand_ent)], dim=-1)
+            drawn = tuple(as_device(x, dev) for x in draws[epoch])
+        pos, neg = epoch_batches(triples, drawn, batch)
         if renorm == "sparse":
             touched = torch.cat([pos[..., 0], pos[..., 2], neg[..., 0], neg[..., 2]])
             _renorm_rows(params, touched.reshape(-1), epoch == 0)
-        losses = [step(params, spec, pos[i], neg[i], lr)[1] for i in range(nb)]
+        losses = run_epoch(params, spec, pos, neg, lr)
         if renorm == "dense":
             params["ent"] = normalize_entities(params)["ent"]
-        means.append(torch.stack(losses).mean())
+        means.append(losses.mean())
     if renorm == "sparse":
         params["ent"] = normalize_entities(params)["ent"]
     return params, torch.stack(means)

@@ -4,9 +4,11 @@ SGD on the margin ranking loss with 1:1 negative sampling, at OpenKE's
 defaults as the paper uses them (§4.1.1): lr 0.5, batch 100, margin 4.
 
 The default path is the training engine (``kge.engine``): sparse steps on
-bucket-padded tables, the fused ``sparse_update`` kernel for TransE and
-DistMult. ``impl="reference"`` keeps the dense host loop of ``_epoch`` calls
-with numpy negative sampling as the parity oracle; it draws from the same
+bucket-padded tables; on the card, TransE and DistMult run each epoch as
+one launch of the fused ``sparse_update`` kernel, and elsewhere (as in the
+JAX package off the TPU) every family takes the autograd sparse step.
+``impl="reference"`` keeps the dense host loop of ``_epoch`` calls with
+numpy negative sampling as the parity oracle; it draws from the same
 ``np.random.default_rng(seed)`` stream as the JAX package's, so the two are
 comparable draw for draw.
 
@@ -151,7 +153,7 @@ class KGETrainer:
         ``draws`` replaces the engine's own draws with explicit ones, one
         ``(perm, corrupt_head, rand_ent)`` per epoch (the randomness seam);
         the reference path draws from ``self.rng`` and ignores it."""
-        impl = resolve_train_impl(impl, self.model.family)
+        impl = resolve_train_impl(impl, self.model.family, self.params["ent"].device)
         tr = self._train_triples()
         if impl == "reference":
             return self._train_epochs_reference(tr, epochs)

@@ -15,7 +15,12 @@ sum is exact in any order.
 The sparse SGD step agrees with its plain version within atol 1e-6 after one
 step and 1e-5 after 64 (loss rtol 1e-6); on dyadic tables it is bit-equal
 to the plain version on the CPU (which sums in the kernel's order), and two
-runs of the kernel are always bit-equal.
+runs of the kernel are always bit-equal. The epoch kernel (all steps of an
+epoch in one cluster launch) is held the same way against the plain step
+loop: bit-equal over l1 epochs on dyadic tables (the tables stay exact), on
+a 12-row table too, where every step re-reads rows the step before wrote
+on another SM; within 1e-5 after 64 steps at Dbpedia's size; bit-equal
+between reruns and between clusters of 8 and 16 blocks.
 
 The cosine kernel agrees with its plain version within atol 1e-5 (zero rows
 give exactly 0); blockwise CSLS argmaxes equal the full matrix's up to
@@ -44,7 +49,14 @@ from repro_torch.kernels.triple_score import (
     pairwise_scores_plain,
 )
 from repro_torch.kernels.sparse_update import LAUNCHES as STEP_LAUNCHES
-from repro_torch.kernels.sparse_update import fused_sparse_step, sparse_step_plain
+from repro_torch.kernels.sparse_update import STEPS as STEP_STEPS
+from repro_torch.kernels.sparse_update import (
+    fused_sparse_epoch,
+    fused_sparse_step,
+    sparse_epoch_plain,
+    sparse_step_plain,
+)
+from repro_torch.kernels.sparse_update.ops import grads_in_dsmem
 from repro_torch.kge.models import KGEModel, params_from_numpy
 from repro_torch.kge.trainer import KGETrainer
 from repro_torch.serving import KGECandidateRanker, KGEServingTier
@@ -260,6 +272,104 @@ def test_sparse_step_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev):
         fused_sparse_step(ent, rel, big, big, 0.5)
 
 
+def _epoch(rng, e, r, b, nb, dev):
+    batches = [_hard_batch(rng, e, r, b) for _ in range(nb)]
+    return (torch.stack([p for p, _ in batches]).to(dev),
+            torch.stack([n for _, n in batches]).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,nb", [(500, 16), (12, 32)], ids=["e500", "tiny-table"])
+def test_sparse_epoch_bit_equal_on_dyadic(cuda_dev, e, nb):
+    """l1 steps on dyadic tables stay exact, so the epoch kernel must equal
+    the plain loop on the CPU bit for bit, loss by loss. On the 12-row table
+    every step re-reads rows that the step before wrote, from other SMs of
+    the cluster: a stale read through L1 or the read-only path would show."""
+    rng = np.random.default_rng(e + nb)
+    r, d, b = 3, 16, 8
+    ent = torch.as_tensor(_dyadic(rng, (e, d)))
+    rel = torch.as_tensor(_dyadic(rng, (r, d)))
+    pos, neg = _epoch(rng, e, r, b, nb, torch.device("cpu"))
+    ke, kr = ent.clone().to(cuda_dev), rel.clone().to(cuda_dev)
+    before = STEP_LAUNCHES["sparse_sgd_step"], STEP_STEPS["sparse_sgd_step"]
+    kl = fused_sparse_epoch(ke, kr, pos.to(cuda_dev), neg.to(cuda_dev), 0.5, mode="l1")
+    assert STEP_LAUNCHES["sparse_sgd_step"] == before[0] + 1  # one launch for the epoch
+    assert STEP_STEPS["sparse_sgd_step"] == before[1] + nb
+    start = ent.clone()
+    pl = sparse_epoch_plain(ent, rel, pos, neg, 0.5, mode="l1")
+    assert not torch.equal(ent, start)
+    assert torch.equal(ke.cpu(), ent) and torch.equal(kr.cpu(), rel)
+    assert torch.equal(kl.cpu(), pl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+def test_sparse_epoch_tiny_table_matches_plain(cuda_dev, mode):
+    """64 steps on a 12-row table with continuous values, every mode: rows
+    written by one step are read by the next (stale reads would be off by a
+    whole update, ~1e-2), held within 1e-5 of the plain loop on the card."""
+    rng = np.random.default_rng(40)
+    e, r, d, b, nb = 12, 3, 33, 8, 64
+    ent, rel = _step_tables(rng, e, r, d, cuda_dev)
+    pos, neg = _epoch(rng, e, r, b, nb, cuda_dev)
+    pe, pr = ent.clone(), rel.clone()
+    kl = fused_sparse_epoch(ent, rel, pos, neg, 0.1, mode=mode)
+    pl = sparse_epoch_plain(pe, pr, pos, neg, 0.1, mode=mode)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ent, pe, atol=1e-5, rtol=0)
+    torch.testing.assert_close(rel, pr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(kl, pl, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+def test_sparse_epoch_64_steps_at_dbpedia_size(cuda_dev, mode):
+    """64 steps at the training shape (E = 491,078, R = 14,085, d = 100,
+    B = 100): within 1e-5 of the plain loop on the card; two runs, and runs
+    on clusters of 8 and 16 blocks, bit-equal."""
+    rng = np.random.default_rng(64)
+    e, r, d, b, nb = 491_078, 14_085, 100, 100, 64
+    start = _step_tables(rng, e, r, d, cuda_dev)
+    pos, neg = _epoch(rng, e, r, b, nb, cuda_dev)
+    runs = []
+    for cluster in (8, 8, 16):
+        ent, rel = (t.clone() for t in start)
+        losses = fused_sparse_epoch(ent, rel, pos, neg, 0.5, mode=mode, cluster=cluster)
+        runs.append((ent, rel, losses))
+    pe, pr = (t.clone() for t in start)
+    pl = sparse_epoch_plain(pe, pr, pos, neg, 0.5, mode=mode)
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(runs[0], other))
+    torch.testing.assert_close(runs[0][0], pe, atol=1e-5, rtol=0)
+    torch.testing.assert_close(runs[0][1], pr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(runs[0][2], pl, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,dsmem", [(544, True), (545, False), (9585, False)])
+def test_sparse_epoch_at_the_batch_caps(cuda_dev, b, dsmem):
+    """The largest batch whose gradient rows fit the cluster's shared memory
+    at d = 100 (16 blocks), the next one (a global buffer), and the largest
+    the kernel takes; one past that raises."""
+    assert grads_in_dsmem(b, 100) == dsmem
+    rng = np.random.default_rng(b)
+    e, r, d, nb = 5000, 40, 100, 3
+    ent, rel = _step_tables(rng, e, r, d, cuda_dev)
+    pos, neg = _epoch(rng, e, r, b, nb, cuda_dev)
+    pe, pr = ent.clone(), rel.clone()
+    kl = fused_sparse_epoch(ent, rel, pos, neg, 0.5, mode="l2")
+    pl = sparse_epoch_plain(pe, pr, pos, neg, 0.5, mode="l2")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(ent, pe, atol=1e-5, rtol=0)
+    torch.testing.assert_close(rel, pr, atol=1e-5, rtol=0)
+    torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-6)
+    if b == 9585:
+        big = torch.zeros(1, b + 1, 3, dtype=torch.int64, device=cuda_dev)
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_sparse_epoch(ent, rel, big, big, 0.5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("family,norm_ord,impl", [("transe", 1, "fused"),
                                                   ("transe", 2, "fused"),
@@ -285,10 +395,11 @@ def test_trainer_on_the_card_equals_the_cpu_trainer(cuda_dev, family, norm_ord, 
     n_pad = nb * b
     draws = [(rng.permutation(n_pad), rng.random((nb, b)) < 0.5, rng.integers(0, e, (nb, b)))
              for _ in range(3)]
-    before = STEP_LAUNCHES["sparse_sgd_step"]
+    before = STEP_LAUNCHES["sparse_sgd_step"], STEP_STEPS["sparse_sgd_step"]
     losses = [t.train_epochs(3, impl=impl, draws=draws) for t in trainers]
-    if impl == "fused":
-        assert STEP_LAUNCHES["sparse_sgd_step"] == before + 3 * nb
+    if impl == "fused":  # one launch per epoch, nb steps each
+        assert STEP_LAUNCHES["sparse_sgd_step"] == before[0] + 3
+        assert STEP_STEPS["sparse_sgd_step"] == before[1] + 3 * nb
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
     for k in start:
         torch.testing.assert_close(trainers[0].params[k].cpu(), trainers[1].params[k],
@@ -542,6 +653,11 @@ def _ssd_inputs(g, dev, b, s, h, p, n):
     (2, 96, 16, 32, 32, 32),      # the reduced card
     (1, 150, 3, 16, 8, 50),       # a chunk that is not a multiple of the 64-row tile
     (1, 64, 2, 128, 72, 64),      # P 128, N past one 64-wide tile
+    (1, 384, 6, 64, 128, 192),    # Q 192: three 64-row tiles
+    (1, 2048, 4, 64, 128, 1024),  # Q 1,024: four 256-column bands of S per late tile
+    (4, 512, 80, 64, 128, 256),   # the serve script's batch of 4
+    (1, 256, 5, 16, 64, 256),     # P 16 at a full chunk
+    (2, 512, 12, 128, 128, 256),  # P 128 at a full chunk
 ])
 def test_ssd_chunks_match_plain(cuda_dev, b, s, h, p, n, chunk):
     """The chunk kernel against its plain version on the card (all three
@@ -572,6 +688,77 @@ def test_ssd_chunks_match_plain(cuda_dev, b, s, h, p, n, chunk):
         yr, fr = ks.ssd_ref(x, dt, a, bm, cm, chunk, state)
         assert float((y - yr).abs().max()) <= 1e-3 * float(yr.abs().max())
         assert float((fin - fr).abs().max()) <= 1e-3 * float(fr.abs().max())
+
+
+@pytest.mark.cuda
+def test_shared_memory_sizes_in_python_equal_the_kernels(cuda_dev):
+    """The wrappers size shared memory (and choose layouts and head groups)
+    from Python copies of the kernels' own layouts: they must agree."""
+    import ctypes
+
+    from repro_torch.kernels.sparse_update import ops as sops
+    from repro_torch.kernels.ssd_scan import ops as kops
+
+    sp = sops.STEP_LIB.load().sparse_update_smem_bytes
+    sp.restype = ctypes.c_longlong
+    for b, d, cluster in [(100, 100, 16), (100, 100, 8), (576, 100, 16), (9585, 33, 16), (1, 1, 8)]:
+        for dsmem in (True, False):
+            assert sp(b, d, cluster, int(dsmem)) == sops.smem_bytes(b, d, cluster, dsmem)
+    sd = kops.SSD_LIB.load().ssd_chunks_smem_bytes
+    sd.restype = ctypes.c_longlong
+    for p in kops.HEAD_DIMS:
+        for g, q in [(1, 4096), (5, 256), (20, 256), (3, 50)]:
+            assert sd(p, g, q) == kops.smem_bytes(p, g, q)
+
+
+def _ssd_check(ks, args, group=None):
+    got = ks.ssd_chunks(*args, group=group)
+    want = ks.ssd_chunks_plain(*args)
+    torch.cuda.synchronize()
+    for name, x_, y_ in zip(("y_intra", "state", "decay"), got, want):
+        assert x_.shape == y_.shape, name
+        err = float((x_ - y_).abs().max())
+        assert err <= 1e-5 * float(y_.abs().max()), (name, group, err, float(y_.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [None, 1, 2, 3, 4, 7])
+def test_ssd_chunks_head_groups(cuda_dev, group):
+    """Seven heads in blocks of G that do not divide them (the last block's
+    group is shorter), and the wrapper's own choice: within 1e-5 of the
+    plain version's largest magnitude, on every output."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    g = torch.Generator(device=cuda_dev).manual_seed(77)
+    b, s, h, p, n, chunk = 1, 512, 7, 64, 128, 256
+    x, dt, a, bm, cm = _ssd_inputs(g, cuda_dev, b, s, h, p, n)
+    nc = s // chunk
+    args = (x.reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4),
+            dt.reshape(b, nc, chunk, h).permute(0, 3, 1, 2), a,
+            bm.reshape(b, nc, chunk, n), cm.reshape(b, nc, chunk, n))
+    _ssd_check(ks, args, group)
+
+
+@pytest.mark.cuda
+def test_ssd_chunks_unaligned_views(cuda_dev):
+    """x, B and C whose pointers are off 16 bytes, and B and C rows of N = 6
+    (not a multiple of 4): the wrapper copies what the 16-byte copies cannot
+    read, and the outputs keep their shapes and 1e-5."""
+    from repro_torch.kernels import ssd_scan as ks
+
+    g = torch.Generator(device=cuda_dev).manual_seed(78)
+    b, nc, q, h, p, n = 2, 2, 96, 3, 32, 6
+
+    def off(*shape):
+        flat = torch.randn(1 + int(np.prod(shape)), device=cuda_dev, generator=g)
+        return flat[1:].view(*shape)
+
+    x = off(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dt = torch.nn.functional.softplus(off(b, nc, q, h)).permute(0, 3, 1, 2) * 0.1
+    a = -torch.arange(1, h + 1, device=cuda_dev, dtype=torch.float32)
+    bm, cm = off(b, nc, q, n), off(b, nc, q, n)
+    assert x.data_ptr() % 16 and bm.data_ptr() % 16 and n % 4
+    _ssd_check(ks, (x, dt, a, bm, cm))
 
 
 @pytest.mark.cuda

@@ -217,15 +217,26 @@ def test_train_epochs_device_roundtrip_leaves_its_input_alone():
 
 def test_resolve_train_impl(monkeypatch):
     monkeypatch.delenv("REPRO_TRAIN_IMPL", raising=False)
-    assert resolve_train_impl(None, "transe") == "fused"
-    assert resolve_train_impl(None, "distmult") == "fused"
-    assert resolve_train_impl(None, "transh") == "sparse"
+    # the default follows the tables' device, as the JAX package's follows its
+    # backend: the kernel on the card, the autograd step on the CPU
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    for dev in (None, cpu, "cpu"):
+        assert resolve_train_impl(None, "transe", dev) == "sparse"
+        assert resolve_train_impl(None, "distmult", dev) == "sparse"
+    assert resolve_train_impl(None, "transe", card) == "fused"
+    assert resolve_train_impl(None, "distmult", "cuda:0") == "fused"
+    assert resolve_train_impl(None, "transh", card) == "sparse"
+    assert resolve_train_impl(None, "transh", cpu) == "sparse"
+    assert resolve_train_impl("fused", "transe", cpu) == "fused"
+    assert resolve_train_impl("pallas", "distmult", cpu) == "fused"
     assert resolve_train_impl("reference") == "reference"
     assert resolve_train_impl("pallas", "transe") == "fused"
     assert resolve_train_impl("pallas", "rotate") == "sparse"
     assert resolve_train_impl("xla", "transe") == "sparse"
     monkeypatch.setenv("REPRO_TRAIN_IMPL", "xla")
-    assert resolve_train_impl(None, "transe") == "sparse"
+    assert resolve_train_impl(None, "transe", card) == "sparse"
+    monkeypatch.setenv("REPRO_TRAIN_IMPL", "pallas")
+    assert resolve_train_impl(None, "transe", cpu) == "fused"
     monkeypatch.setenv("REPRO_TRAIN_IMPL", "reference")
     assert resolve_train_impl(None, "transe") == "reference"
     with pytest.raises(ValueError):

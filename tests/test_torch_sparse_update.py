@@ -8,6 +8,15 @@ row 0 and row E−1, and pos and neg sharing rows. On dyadic tables with
 B = 8 and lr = 0.5 every value of an l1 or dot step is exact in fp32, so
 tables and loss must be bit-equal; l2 (a sqrt and a division) is held
 within atol 1e-6.
+
+``fused_sparse_epoch`` (a whole epoch of steps; on the card one launch) is
+held against the JAX step applied step by step on a 12-row table, where
+every step re-reads rows the previous one wrote: l1 steps on dyadic tables
+move rows by multiples of 1/16, so tables and every step's loss stay
+bit-equal; l2 and dot leave the dyadic grid after a step (a sqrt, products
+of updated rows), and the JAX kernel sums each row's gradients by a one-hot
+matmul whose order is not the occurrence order, so those are held within
+1e-6 on dyadic tables and 1e-5 on continuous ones.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +28,14 @@ from repro.kernels.sparse_update import fused_sparse_step as jax_fused_step
 from repro.kernels.sparse_update import sparse_step_ref as jax_step_ref
 from repro_torch.kernels.sparse_update import (
     LAUNCHES,
+    STEPS,
+    fused_sparse_epoch,
     fused_sparse_step,
+    sparse_epoch_plain,
     sparse_step_plain,
     sparse_step_ref,
 )
+from repro_torch.kernels.sparse_update.ops import grads_in_dsmem, smem_bytes
 
 E, R, D, B = 48, 5, 16, 8
 
@@ -150,3 +163,100 @@ def test_wrapper_rejects_what_the_step_does_not_take():
         fused_sparse_step(ent, rel, pos[:, :2], pos[:, :2], 0.5)
     with pytest.raises(ValueError, match=r"B >= 1"):
         fused_sparse_step(ent, rel, pos[:0], pos[:0], 0.5)
+
+
+# ------------------------------------------------------------------ epochs
+def _epoch_batches(rng, e, r, b, nb):
+    batches = [hard_batch(rng, e, r, b) for _ in range(nb)]
+    return (np.stack([p for p, _ in batches]), np.stack([n for _, n in batches]))
+
+
+@pytest.mark.parametrize("dy", [True, False], ids=["dyadic", "continuous"])
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+def test_plain_epoch_matches_jax_step_by_step(mode, dy):
+    """Twelve steps on a 12-row table (every row recurs from step to step)
+    against the JAX package's fused step applied twelve times."""
+    e, r, b, nb = 12, 3, 8, 12
+    ent, rel, rng = _tables(5, e, r, D, dy=dy)
+    pos, neg = _epoch_batches(rng, e, r, b, nb)
+    je, jr, jl = ent, rel, []
+    for i in range(nb):
+        je, jr, li = _jax(je, jr, pos[i], neg[i], 0.5, mode, 4.0)
+        jl.append(li)
+    te, tr = torch.from_numpy(ent.copy()), torch.from_numpy(rel.copy())
+    losses = fused_sparse_epoch(te, tr, torch.from_numpy(pos), torch.from_numpy(neg), 0.5,
+                                mode=mode, margin=4.0)
+    assert losses.shape == (nb,) and losses.dtype == torch.float32
+    assert not np.array_equal(te.numpy(), ent)
+    if dy and mode == "l1":
+        np.testing.assert_array_equal(te.numpy(), je)
+        np.testing.assert_array_equal(tr.numpy(), jr)
+        np.testing.assert_array_equal(losses.numpy(), np.array(jl, np.float32))
+    else:
+        atol = 1e-6 if dy else 1e-5
+        np.testing.assert_allclose(te.numpy(), je, rtol=0, atol=atol)
+        np.testing.assert_allclose(tr.numpy(), jr, rtol=0, atol=atol)
+        np.testing.assert_allclose(losses.numpy(), np.array(jl, np.float32), rtol=atol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+def test_epoch_equals_its_steps_and_one_step_is_the_step(mode):
+    """An epoch equals the plain step applied step by step, bit for bit, and
+    an epoch of one batch equals ``fused_sparse_step`` on it."""
+    e, r, b, nb = 16, 4, 10, 9
+    ent, rel, rng = _tables(9, e, r, D, dy=False)
+    pos, neg = (torch.from_numpy(x) for x in _epoch_batches(rng, e, r, b, nb))
+    ke, kr = torch.from_numpy(ent.copy()), torch.from_numpy(rel.copy())
+    pe, pr = torch.from_numpy(ent.copy()), torch.from_numpy(rel.copy())
+    kl = fused_sparse_epoch(ke, kr, pos, neg, 0.3, mode=mode, margin=2.0)
+    pl = torch.stack([sparse_step_plain(pe, pr, pos[i], neg[i], 0.3, mode=mode, margin=2.0)
+                      for i in range(nb)])
+    assert torch.equal(ke, pe) and torch.equal(kr, pr) and torch.equal(kl, pl)
+    pe2, pr2 = torch.from_numpy(ent.copy()), torch.from_numpy(rel.copy())
+    assert torch.equal(sparse_epoch_plain(pe2, pr2, pos, neg, 0.3, mode=mode, margin=2.0), pl)
+    one_e, one_r = torch.from_numpy(ent.copy()), torch.from_numpy(rel.copy())
+    st_e, st_r = torch.from_numpy(ent.copy()), torch.from_numpy(rel.copy())
+    l1 = fused_sparse_epoch(one_e, one_r, pos[:1], neg[:1], 0.3, mode=mode, margin=2.0)
+    ls = fused_sparse_step(st_e, st_r, pos[0], neg[0], 0.3, mode=mode, margin=2.0)[2]
+    assert l1.shape == (1,) and ls.shape == ()
+    assert torch.equal(one_e, st_e) and torch.equal(one_r, st_r) and torch.equal(l1[0], ls)
+
+
+def test_cpu_epoch_counts_no_launch_and_no_step():
+    ent, rel, rng = _tables(4)
+    pos, neg = (torch.from_numpy(x) for x in _epoch_batches(rng, E, R, B, 3))
+    before = dict(LAUNCHES), dict(STEPS)
+    fused_sparse_epoch(torch.from_numpy(ent), torch.from_numpy(rel), pos, neg, 0.5)
+    assert (dict(LAUNCHES), dict(STEPS)) == before
+
+
+def test_epoch_wrapper_rejects_what_the_kernel_does_not_take():
+    ent, rel = torch.zeros(E, D), torch.zeros(R, D)
+    pos = torch.zeros(2, B, 3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="unknown sparse mode"):
+        fused_sparse_epoch(ent, rel, pos, pos, 0.5, mode="cl1")
+    with pytest.raises(ValueError, match=r"\(nb, B, 3\)"):
+        fused_sparse_epoch(ent, rel, pos[0], pos[0], 0.5)
+    with pytest.raises(ValueError, match=r"\(nb, B, 3\)"):
+        fused_sparse_epoch(ent, rel, pos[:0], pos[:0], 0.5)
+    with pytest.raises(ValueError, match=r"\(nb, B, 3\)"):
+        fused_sparse_epoch(ent, rel, pos, pos[:1], 0.5)
+    with pytest.raises(ValueError, match="cluster"):
+        fused_sparse_epoch(ent, rel, pos, pos, 0.5, cluster=4)
+    with pytest.raises(ValueError, match=r"\(E, d\)"):
+        fused_sparse_epoch(ent, torch.zeros(R, D + 1), pos, pos, 0.5)
+
+
+@pytest.mark.parametrize("cluster,d,dsmem_cap,cap", [(16, 100, 544, 9585), (8, 100, 320, 9487),
+                                                      (16, 128, 451, 9585)])
+def test_batch_caps_of_the_two_gradient_layouts(cluster, d, dsmem_cap, cap):
+    """The kernel's shared memory per block (``smem_bytes``, mirrored in the
+    CUDA source): gradient rows in the cluster's shared memory up to
+    ``dsmem_cap``, in a global buffer up to ``cap``, and a raise past it."""
+    assert grads_in_dsmem(1, d, cluster) and grads_in_dsmem(dsmem_cap, d, cluster)
+    assert not grads_in_dsmem(dsmem_cap + 1, d, cluster)
+    assert not grads_in_dsmem(cap, d, cluster)
+    assert smem_bytes(cap, d, cluster, False) <= 232_448 < smem_bytes(cap + 1, d, cluster, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        grads_in_dsmem(cap + 1, d, cluster)

@@ -1,5 +1,6 @@
-"""The split-TF32 ("3xTF32") scheme of the cosine and flash-attention kernels,
-checked on the CPU through its emulation (``repro_torch.kernels._tf32``).
+"""The split-TF32 ("3xTF32") scheme of the cosine, flash-attention and SSD
+chunk kernels, checked on the CPU through its emulation
+(``repro_torch.kernels._tf32``).
 
 The kernels split each fp32 operand into ``hi = tf32(x)`` and
 ``lo = tf32(x − hi)`` and form every product as hi·hi + hi·lo + lo·hi on
@@ -25,6 +26,8 @@ from repro_torch.kernels._tf32 import HI_CLAMP, matmul_tf32, split, tf32_rna
 from repro_torch.kernels.csls import cosine_matrix_plain
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_mask
+from repro_torch.kernels.ssd_scan import ssd_chunks_plain
+from repro_torch.kernels.ssd_scan.ops import sequential_cumsum
 from repro_torch.kernels.triple_score.ops import sqrt_rn
 
 
@@ -130,3 +133,56 @@ def test_split_attention_within_the_card_tolerance(dh, causal, window, scale):
     torch.testing.assert_close(got.double(), want.double(), atol=1e-5, rtol=1e-5)
     one, _ = _attention_tf32(q, k, v, causal=causal, window=window, terms=1)
     assert not torch.allclose(one.double(), want.double(), atol=1e-5, rtol=1e-5)
+
+
+def _ssd_tf32(x, dt, a, bm, cm, *, terms):
+    """One chunk the way the SSD kernel computes it (x (H, Q, P), dt (H, Q),
+    a (H,), B/C (Q, N)): S = C Bᵀ and the state's product in TF32 k-steps,
+    W = S · exp(cum_s − cum_t) · dt_t in fp32 with the exponential taken as
+    2^(fp32((cum_s − cum_t) · log2 e)) (the argument rounding of ``__expf``),
+    and y = W x over the two 32-column halves of each 64-wide t tile summed
+    at the end, as the kernel's two warp halves do."""
+    q = x.shape[1]
+    cum = sequential_cumsum(dt * a[:, None])
+    s_ = matmul_tf32(cm, bm.T.contiguous(), terms=terms)
+    causal = torch.ones(q, q, dtype=torch.bool).tril()
+    diff = torch.where(causal, cum[:, :, None] - cum[:, None, :], 0.0)
+    arg = (diff.double() * (1 / math.log(2))).float()
+    decay = torch.where(causal, torch.exp2(arg.double()).float(), 0.0)
+    w = s_ * decay * dt[:, None, :]
+    half = (torch.arange(q) % 64) < 32
+    y = sum(matmul_tf32(w[:, :, cols].contiguous(), x[:, cols].contiguous(), terms=terms)
+            for cols in (half, ~half))
+    decay_end = torch.exp(cum[:, -1:] - cum) * dt
+    state = matmul_tf32((x * decay_end[..., None]).transpose(1, 2).contiguous(), bm,
+                        terms=terms)
+    return y, state
+
+
+def test_split_ssd_chunk_within_the_card_tolerance():
+    """One mamba2-2.7b chunk (Q 256, N 128, P 64) on Mamba2's laws, heads with
+    A from −1 down to −80, where cum reaches ~−10³: y and the chunk state
+    within 1e-5 of the plain version's largest magnitude, where one TF32
+    product is not."""
+    rng = np.random.default_rng(80)
+    q, n, p = 256, 128, 64
+    a = torch.tensor([-1.0, -10.0, -40.0, -80.0])
+    h = len(a)
+    dt_init = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), h))
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        (rng.standard_normal((h, q)) + np.log(np.expm1(dt_init))[:, None]).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((h, q, p)).astype(np.float32))
+    bm = torch.from_numpy(rng.standard_normal((q, n)).astype(np.float32))
+    cm = torch.from_numpy(rng.standard_normal((q, n)).astype(np.float32))
+    y_p, st_p, _ = ssd_chunks_plain(x[None, :, None], dt[None, :, None], a, bm[None, None],
+                                    cm[None, None])
+    y_p, st_p = y_p[0, :, 0], st_p[0, :, 0]
+    assert float(sequential_cumsum(dt * a[:, None]).min()) < -500
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    y3, st3 = _ssd_tf32(x, dt, a, bm, cm, terms=3)
+    assert rel(y3, y_p) <= 1e-5 and rel(st3, st_p) <= 1e-5, (rel(y3, y_p), rel(st3, st_p))
+    y1, st1 = _ssd_tf32(x, dt, a, bm, cm, terms=1)
+    assert max(rel(y1, y_p), rel(st1, st_p)) > 1e-5  # one TF32 product breaks the check

@@ -154,7 +154,7 @@ def test_extended_training_samples_virtual_rows(kg):
     pl = pt.train_epochs(1, impl="reference")
     np.testing.assert_allclose(pl, jl, rtol=1e-5)
     _assert_tables(pt, jt, 1e-5)
-    pt.train_epochs(1)  # the fused path over the extended store and tables
+    pt.train_epochs(1, impl="fused")  # the fused path over the extended store and tables
     assert pt.params["ent"].shape == (E + 4, D)
 
 
@@ -162,14 +162,14 @@ def test_snapshot_and_restore_survive_in_place_training(kg):
     _, pt = _pair(kg, "transe")
     snap = pt.snapshot()
     kept = {k: v.clone() for k, v in snap.items()}
-    pt.train_epochs(1)  # fused, in place on pt.params
+    pt.train_epochs(1, impl="fused")  # in place on pt.params
     assert not torch.equal(pt.params["ent"], kept["ent"])
     for k in kept:
         assert torch.equal(snap[k], kept[k])
     pt.restore(snap)
     for k in kept:
         assert torch.equal(pt.params[k], kept[k])
-    pt.train_epochs(1)
+    pt.train_epochs(1, impl="fused")
     pt.restore(snap)  # restore copied: the snapshot was not trained over
     for k in kept:
         assert torch.equal(pt.params[k], kept[k])
@@ -200,7 +200,7 @@ def test_published_version_is_unchanged_by_later_training(kg):
     tier.run_until_drained()
     published = {k: v.clone() for k, v in tier._active.params.items()}
     before = pt.params["ent"].clone()
-    pt.train_epochs(1)
+    pt.train_epochs(1, impl="fused")
     assert not torch.equal(pt.params["ent"], before)
     again = tier.submit_rank(q[:, 0], q[:, 1], q[:, 2])
     tier.run_until_drained()
