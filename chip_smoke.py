@@ -62,8 +62,8 @@ Phases (every failed check ends the run with a non-zero exit):
    published to the tier, trained one more step in place, and the published
    version must still answer as before;
 7. timings of the epoch kernel at the training shape (device time of one
-   launch over a whole epoch, per epoch and per step, on clusters of 16 and
-   8 blocks; the plain step loop over the same epoch; the bound per epoch
+   launch over a whole epoch, per epoch and per step, on its cluster of 16
+   blocks; the plain step loop over the same epoch; the bound per epoch
    and per step) and a ``torch.profiler`` trace of one training epoch of
    the engine: the device's idle share;
 8. the cosine kernel against its plain version on the card: (n, m, d) =
@@ -128,9 +128,12 @@ Phases (every failed check ends the run with a non-zero exit):
    both at the serve script's batch 4 x 2,048 (outputs held against the
    plain versions first).
 
-A kernel's ``ms`` is its device time: calls queued behind a device-side
-sleep, between CUDA events (``time_device_ms``); ``call_ms`` beside it is
-one call between events on an idle stream, the host's launch included.
+A kernel's ``ms`` is one call between CUDA events on an idle stream, the
+host's launch included (``time_ms``); ``device_ms`` beside it is its device
+time: calls queued behind a device-side sleep, between events
+(``time_device_ms``). The sparse SGD kernel is the exception: an epoch
+launch lasts tens of ms, and its ``ms`` is the device time of one (as
+``device_ms``); ``call_ms`` is one lone step between events.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
@@ -527,8 +530,8 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     flops = 2 * b * e * d
     bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
     out["fused_ranks"] = dict(
-        ms=time_device_ms(torch, fused, DEVICE_CALLS, DEVICE_RUNS),
-        call_ms=time_ms(torch, fused, ITERS),
+        ms=time_ms(torch, fused, ITERS),
+        device_ms=time_device_ms(torch, fused, DEVICE_CALLS, DEVICE_RUNS),
         plain_ms=time_ms(torch, fused_plain, max(3, ITERS // 4)),
         library_ms=None, bound_ms=bound_ms,
         bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
@@ -549,10 +552,10 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     nbytes = 4 * (b * d + e * d + b * e)
     bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
     out["pairwise_scores"] = dict(
-        ms=time_device_ms(torch, pairwise, DEVICE_CALLS, DEVICE_RUNS),
-        call_ms=time_ms(torch, pairwise, ITERS),
+        ms=time_ms(torch, pairwise, ITERS),
+        device_ms=time_device_ms(torch, pairwise, DEVICE_CALLS, DEVICE_RUNS),
         plain_ms=time_ms(torch, pairwise_plain, max(3, ITERS // 4)),
-        library_ms=time_device_ms(torch, library, DEVICE_CALLS, DEVICE_RUNS), bound_ms=bound_ms,
+        library_ms=time_ms(torch, library, ITERS), bound_ms=bound_ms,
         bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
         shape=f"B={b} E={e} d={d} mode={mode}, {len(chunks)} launches of <= {chunk} rows",
         launches_per_batch=len(chunks), bytes=nbytes, flops=flops, max_abs_err=pair_err,
@@ -560,8 +563,8 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     for name in ("fused_ranks", "pairwise_scores"):
         x = out[name]
         lib = "n/a" if x["library_ms"] is None else f"{x['library_ms']:.4f}"
-        log(f"time {name} [{x['shape']}]: kernel {x['ms']:.4f} ms device time ({x['call_ms']:.4f} "
-            f"ms for one call between events), plain {x['plain_ms']:.4f} ms, "
+        log(f"time {name} [{x['shape']}]: kernel {x['ms']:.4f} ms ({x['device_ms']:.4f} ms "
+            f"device time), plain {x['plain_ms']:.4f} ms, "
             f"library {lib} ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
             f"{100 * x['bound_ms'] / x['ms']:.1f}% of bound; {card}")
     return out
@@ -884,7 +887,7 @@ def epoch_inputs(torch, engine, trainer, seed):
 
 def step_timings(torch, np, sops, engine, trainer, dev, card):
     """The epoch kernel at the training shape: device time of one launch over
-    a whole epoch (clusters of 16 and 8 blocks), one lone step between events
+    a whole epoch, one lone step between events
     (host launch included), the plain step loop over the same epoch, and the
     bound per epoch and per step."""
     mem_rate, _, _ = peak_rates(card)
@@ -894,8 +897,8 @@ def step_timings(torch, np, sops, engine, trainer, dev, card):
     r = rel.shape[0]
     nb = pos.shape[0]
 
-    def epoch(cluster=sops.CLUSTER_BLOCKS):
-        return sops.fused_sparse_epoch(ent, rel, pos, neg, TRAIN_LR, cluster=cluster)
+    def epoch():
+        return sops.fused_sparse_epoch(ent, rel, pos, neg, TRAIN_LR)
 
     def step():
         return sops.fused_sparse_step(ent, rel, pos[0], neg[0], TRAIN_LR)
@@ -912,7 +915,6 @@ def step_timings(torch, np, sops, engine, trainer, dev, card):
     runs = max(3, ITERS // 2)
     out = dict(
         ms=time_device_ms(torch, epoch, 1, runs),
-        ms_cluster8=time_device_ms(torch, lambda: epoch(8), 1, runs),
         call_ms=time_ms(torch, step, ITERS),
         library_ms=None, bound_ms=1e3 * nbytes / mem_rate, bound_by="bytes", bytes=nbytes,
         steps=nb, unique_rows_per_step=(float(ue.float().mean()), float(ur.float().mean())),
@@ -926,12 +928,13 @@ def step_timings(torch, np, sops, engine, trainer, dev, card):
     b_.record()
     b_.synchronize()
     out["plain_ms"] = a_.elapsed_time(b_)
-    for k in ("ms", "ms_cluster8", "plain_ms", "bound_ms"):
+    out["device_ms"] = out["ms"]
+    for k in ("ms", "plain_ms", "bound_ms"):
         out[k.replace("ms", "ms_per_step")] = out[k] / nb
     log(f"time sparse_sgd_step [{out['shape']}; {out['unique_rows_per_step'][0]:.1f} + "
         f"{out['unique_rows_per_step'][1]:.1f} unique rows a step]: kernel {out['ms']:.4f} ms "
         f"device time per epoch launch ({1e3 * out['ms_per_step']:.3f} us a step, a cluster of "
-        f"{sops.CLUSTER_BLOCKS} blocks; of 8 blocks {out['ms_cluster8']:.4f} ms), one lone "
+        f"{sops.CLUSTER_BLOCKS} blocks), one lone "
         f"step {out['call_ms']:.4f} ms between events, plain {out['plain_ms']:.1f} ms per epoch "
         f"({out['plain_ms_per_step']:.4f} ms a "
         f"step), library none, bound {out['bound_ms']:.4f} ms per epoch "
@@ -1279,18 +1282,19 @@ def csls_timings(torch, ck, al, x, y, card):
     flops = 2 * n * m * d
     nbytes = 4 * (n * d + m * d + n * m)
     out = dict(
-        ms=time_device_ms(torch, lambda: ck.cosine_matrix(a, b), DEVICE_CALLS, DEVICE_RUNS),
-        call_ms=time_ms(torch, lambda: ck.cosine_matrix(a, b), ITERS),
+        ms=time_ms(torch, lambda: ck.cosine_matrix(a, b), ITERS),
+        device_ms=time_device_ms(torch, lambda: ck.cosine_matrix(a, b), DEVICE_CALLS,
+                                 DEVICE_RUNS),
         plain_ms=time_ms(torch, lambda: ck.cosine_matrix_plain(a, b), max(3, ITERS // 4)),
-        library_ms=time_device_ms(torch, lambda: F.normalize(a, dim=1) @ F.normalize(b, dim=1).T,
-                                  DEVICE_CALLS, DEVICE_RUNS),
+        library_ms=time_ms(torch, lambda: F.normalize(a, dim=1) @ F.normalize(b, dim=1).T,
+                           ITERS),
         **split_tf32_bounds(flops, nbytes, card),
         flops=flops, bytes=nbytes, max_abs_err=err,
         shape=f"n={n} m={m} d={d}",
     )
     out["tflops"] = flops / out["ms"] / 1e9
-    log(f"time cosine_matrix [{out['shape']}]: kernel {out['ms']:.4f} ms device time "
-        f"({out['tflops']:.2f} TFLOP/s; {out['call_ms']:.4f} ms for one call between events), "
+    log(f"time cosine_matrix [{out['shape']}]: kernel {out['ms']:.4f} ms "
+        f"({out['tflops']:.2f} TFLOP/s; {out['device_ms']:.4f} ms device time), "
         f"plain {out['plain_ms']:.4f} ms, library "
         f"(F.normalize @ .T, TF32 off) {out['library_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms split TF32 ({out['bound_by']}: {flops:.3g} FLOP x 3, "
@@ -1666,11 +1670,11 @@ def lm_timings(torch, fa, ks, dev, card):
             return F.scaled_dot_product_attention(qc, kc, vc, is_causal=True, enable_gqa=True)
 
         out[name] = dict(
-            ms=time_device_ms(torch, lambda: fa.flash_attention(q, k, v), DEVICE_CALLS,
-                              DEVICE_RUNS),
-            call_ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), ITERS),
+            ms=time_ms(torch, lambda: fa.flash_attention(q, k, v), ITERS),
+            device_ms=time_device_ms(torch, lambda: fa.flash_attention(q, k, v), DEVICE_CALLS,
+                                     DEVICE_RUNS),
             plain_ms=time_ms(torch, lambda: fa.attention_ref(q, k, v), ITERS),
-            library_ms=time_device_ms(torch, sdpa, DEVICE_CALLS, DEVICE_RUNS),
+            library_ms=time_ms(torch, sdpa, ITERS),
             **split_tf32_bounds(flops, nbytes, card),
             flops=flops, bytes=nbytes, max_abs_err=err,
             shape=f"B={batch} S={s} H={h} KV={kv} Dh={dh} causal fp32")
@@ -1695,8 +1699,9 @@ def lm_timings(torch, fa, ks, dev, card):
         nbytes = 4 * (b * s * h * p + b * s * h + h + 2 * b * s * n       # x, dt, a, B, C
                       + b * s * h * p + b * h * nc * p * n + b * s * h)    # y, states, decay
         out[name] = dict(
-            ms=time_device_ms(torch, lambda: ks.ssd_chunks(*args_), DEVICE_CALLS, DEVICE_RUNS),
-            call_ms=time_ms(torch, lambda: ks.ssd_chunks(*args_), ITERS),
+            ms=time_ms(torch, lambda: ks.ssd_chunks(*args_), ITERS),
+            device_ms=time_device_ms(torch, lambda: ks.ssd_chunks(*args_), DEVICE_CALLS,
+                                     DEVICE_RUNS),
             plain_ms=time_ms(torch, lambda: ks.ssd_chunks_plain(*args_), max(3, ITERS // 4)),
             library_ms=None, **split_tf32_bounds(flops, nbytes, card),
             flops=flops, design_flops=design_flops, heads_per_block=group, bytes=nbytes,
@@ -1708,8 +1713,8 @@ def lm_timings(torch, fa, ks, dev, card):
         kind = "split TF32, FLOP x 3" if "bound_fp32_ms" in x_ else "fp32"
         fp32 = (f"; fp32-pipe bound {x_['bound_fp32_ms']:.4f} ms" if "bound_fp32_ms" in x_
                 else "")
-        log(f"time {name} [{x_['shape']}]: kernel {x_['ms']:.4f} ms device time "
-            f"({x_['call_ms']:.4f} ms for one call between events), plain "
+        log(f"time {name} [{x_['shape']}]: kernel {x_['ms']:.4f} ms "
+            f"({x_['device_ms']:.4f} ms device time), plain "
             f"{x_['plain_ms']:.4f} ms, library {lib} ms, bound {x_['bound_ms']:.4f} ms "
             f"({kind}; {x_['bound_by']}: {x_['flops']:.3g} FLOP, {x_['bytes']:.3g} B), "
             f"{100 * x_['bound_ms'] / x_['ms']:.1f}% of bound{fp32}"
@@ -1850,7 +1855,8 @@ def main(argv=None) -> int:
             "launches": launches[name],
             "max_abs_err": max(worst[name], x.get("max_abs_err", 0),
                                topk_err if name == "pairwise_scores" else 0),
-            "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+            "ms": x["ms"], "device_ms": x["device_ms"], "plain_ms": x["plain_ms"],
+            "bound_ms": x["bound_ms"],
             "bound_by": x["bound_by"], "library_ms": x["library_ms"],
         })
     result = {"card": card, "build_s": build_s, "sass": sass, "check_max_abs_err": worst,

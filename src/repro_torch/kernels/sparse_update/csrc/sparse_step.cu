@@ -13,8 +13,9 @@
 // The Pallas kernel runs one step on a (1,) grid and the reference scans it
 // as one compiled program: the epoch never leaves the device. A step moves
 // ~0.3 MB; what it costs is latency. So the epoch is one launch of one
-// cluster of 16 blocks (8, the portable size, on request) on neighbouring
-// SMs, and each step is two phases between cluster barriers, each barrier
+// cluster of 16 blocks (the non-portable size, which the launch opts in to;
+// it measured faster than the portable 8 on the H100, PERF.md) on
+// neighbouring SMs, and each step is two phases between cluster barriers, each barrier
 // split into barrier.cluster.arrive.release and wait.acquire with local
 // work between them:
 //   (a) each block takes its batch rows (block k rows [k*rpb, (k+1)*rpb),
@@ -46,12 +47,11 @@
 // another SM wrote it. The cluster barriers order the writes of one phase
 // before the reads of the next at cluster scope.
 //
-// Batches too large for the cluster's shared memory (48 * d bytes for each
-// batch row, plus the ids; B <= 544 at d = 100 with 16 blocks) keep the
-// gradient rows in a global buffer instead, in the same kernel (the
-// !DSMEM instantiation), written and read through L2 by the same cg
-// accesses, and the owners read their rows from L2. Only the ids and hinges
-// stay in shared memory, which caps B at 9,585; the wrapper raises past it.
+// The batch must fit the cluster's shared memory: 48 * d bytes for each
+// batch row of a block (its gradient and gathered rows) and 120 bytes for
+// each row of the batch (the ids), per block, caps B at 544 at d = 100. The
+// trainer, the federation and the handshake all take B = 100; the wrapper
+// raises past the cap.
 //
 // Conventions follow _margin_grads exactly: relu'(0) = 0 (act > 0 strictly),
 // sign(0) = 0, the L2 norm is sqrt(sum x^2 + 1e-12), DistMult sums h*r*t.
@@ -79,6 +79,8 @@ enum Mode { L1 = 0, L2 = 1, DOT = 2 };
 constexpr int WARPS = 16;
 constexpr int THREADS = 32 * WARPS;
 constexpr unsigned FULL = 0xffffffffu;
+// blocks of the one cluster (the non-portable size: the launch opts in)
+constexpr int CLUSTER = 16;
 // dynamic shared memory a block may opt in to on Hopper (227 KB)
 constexpr size_t SMEM_LIMIT = 232448;
 
@@ -88,22 +90,18 @@ struct Args {
   const int64_t* pos;        // (nb, B, 3)
   const int64_t* neg;        // (nb, B, 3)
   float* losses;             // (nb,)
-  float* grads;              // (6B, d) in global memory; null when they fit shared memory
   long long E, R;
   int nb, B, d, rpb;         // rpb: batch rows per block
   float lr, margin;
 };
 
 // Shared memory of one block, in bytes: [next ids (int64, 6B) | gradient
-// rows (6 * rpb * d) | the gathered rows (6 * rpb * d)]  -- the distributed-
-// shared-memory layout only -- then [hinges (rpb) | occurrence ids (int,
-// 6B)], and with distributed shared memory each occurrence's place in a
-// step's ids and its location (6B each).
-inline size_t smem_bytes(int B, int d, int rpb, bool dsmem) {
-  size_t n = 0;
-  if (dsmem)
-    n += (size_t)6 * B * (sizeof(int64_t) + 2 * sizeof(int)) + (size_t)12 * rpb * d * sizeof(float);
-  return n + (size_t)rpb * sizeof(float) + (size_t)6 * B * sizeof(int);
+// rows (6 * rpb * d) | the gathered rows (6 * rpb * d) | hinges (rpb) |
+// occurrence ids, each occurrence's place in a step's ids and its location
+// (int, 6B each)].
+inline size_t smem_bytes(int B, int d, int rpb) {
+  return (size_t)6 * B * (sizeof(int64_t) + 3 * sizeof(int)) +
+         (size_t)12 * rpb * d * sizeof(float) + (size_t)rpb * sizeof(float);
 }
 
 // Butterfly sum: every lane ends with the same value (fp add commutes).
@@ -148,7 +146,7 @@ __device__ __forceinline__ void copy_ids(int64_t* next, const int64_t* pos, cons
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int MODE, bool DSMEM>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -156,9 +154,9 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
   char* base = reinterpret_cast<char*>(smem4);
   const int B = a.B, d = a.d, n6 = 6 * B, rpb = a.rpb;
   int64_t* next = reinterpret_cast<int64_t*>(base);  // [pos (3B) | neg (3B)] of the next step
-  float* grads = reinterpret_cast<float*>(base + (DSMEM ? (size_t)n6 * sizeof(int64_t) : 0));
-  float* vals = grads + (DSMEM ? (size_t)6 * rpb * d : 0);  // the rows as gathered
-  float* hinge = vals + (DSMEM ? (size_t)6 * rpb * d : 0);
+  float* grads = reinterpret_cast<float*>(base + (size_t)n6 * sizeof(int64_t));
+  float* vals = grads + (size_t)6 * rpb * d;  // the rows as gathered
+  float* hinge = vals + (size_t)6 * rpb * d;
   int* occ = reinterpret_cast<int*>(hinge + rpb);  // the step's ids, by occurrence
   int* src = occ + n6;  // each occurrence's place in a step's ids
   int* loc = src + n6;  // its block (<< 16) and row of grads / vals there
@@ -167,42 +165,31 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
   const int row0 = rank * rpb, row1 = min(B, row0 + rpb), nrows = max(row1 - row0, 0);
   const int n3 = 3 * B;
 
-  // The occurrence lists of step `st` -- entities [0, 4B), relations [4B, 6B)
-  // -- from its ids in shared memory (or global memory).
-  // Where occurrence o's id sits in a step's [pos (3B) | neg (3B)]; with
-  // distributed shared memory, kept for every o (it is the same each step),
-  // with the block that keeps its gradient row and the row there.
-  auto place = [&](int o) {
+  // Where occurrence o's id sits in a step's [pos (3B) | neg (3B)] (the same
+  // each step), the block that keeps its gradient row and the row there.
+  for (int o = threadIdx.x; o < n6; o += THREADS) {
     bool is_neg;
     const int k = occ_offset(o, B, is_neg);
-    return (is_neg ? n3 : 0) + k;
-  };
-  if (DSMEM) {
-    for (int o = threadIdx.x; o < n6; o += THREADS) {
-      src[o] = place(o);
-      const int slot = o / B, i = o - slot * B, blk = i / rpb;
-      loc[o] = (blk << 16) | (slot * rpb + i - blk * rpb);
-    }
-    __syncthreads();
+    src[o] = (is_neg ? n3 : 0) + k;
+    const int slot = o / B, i = o - slot * B, blk = i / rpb;
+    loc[o] = (blk << 16) | (slot * rpb + i - blk * rpb);
   }
-  auto convert = [&](int st) {
-    const int64_t* ids = a.pos + (size_t)st * n3;  // neg follows at a.neg
+  // The occurrence lists of a step -- entities [0, 4B), relations [4B, 6B)
+  // -- from its ids in shared memory.
+  auto convert = [&]() {
     for (int o = threadIdx.x; o < n6; o += THREADS) {
-      const int k = DSMEM ? src[o] : place(o);
-      const int64_t id = DSMEM ? next[k] : k < n3 ? ids[k] : a.neg[(size_t)st * n3 + k - n3];
+      const int64_t id = next[src[o]];
       assert(id >= 0 && id < (o >= 4 * B ? a.R : a.E));
       occ[o] = (int)id;
     }
   };
 
-  if (DSMEM) {
-    copy_ids(next, a.pos, a.neg, n3);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();
-  }
-  convert(0);
+  copy_ids(next, a.pos, a.neg, n3);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
-  if (DSMEM && a.nb > 1) copy_ids(next, a.pos + n3, a.neg + n3, n3);
+  convert();
+  __syncthreads();
+  if (a.nb > 1) copy_ids(next, a.pos + n3, a.neg + n3, n3);
   cluster.sync();  // every block of the cluster runs before any reads another's memory
 
   for (int step = 0; step < a.nb; ++step) {
@@ -220,7 +207,7 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
       float* vslot[6];
 #pragma unroll
       for (int s = 0; s < 6; ++s) {
-        slot[s] = DSMEM ? grads + ((size_t)s * rpb + li) * d : a.grads + ((size_t)s * B + i) * d;
+        slot[s] = grads + ((size_t)s * rpb + li) * d;
         vslot[s] = vals + ((size_t)s * rpb + li) * d;
       }
       // scores: lane sums its columns in ascending order, then the warp sums
@@ -237,10 +224,9 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
         for (int u = 0; u < 4; ++u) {
           const int j = c0 + 32 * u + lane;
           if (j >= d) continue;
-          if (DSMEM) {  // kept for the gradients below and for the owners' updates
+          // kept for the gradients below and for the owners' updates
 #pragma unroll
-            for (int s = 0; s < 6; ++s) vslot[s][j] = v[s][u];
-          }
+          for (int s = 0; s < 6; ++s) vslot[s][j] = v[s][u];
           const float he = v[0][u], te = v[1][u], nhe = v[2][u], nte = v[3][u];
           const float re = v[4][u], nre = v[5][u];
           if (MODE == DOT) {
@@ -283,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
           const int j = c0 + 32 * u + lane;
 #pragma unroll
           for (int s = 0; s < 6; ++s)
-            v[s][u] = j >= d ? 0.f : DSMEM ? vslot[s][j] : __ldcg(rows[s] + j);
+            v[s][u] = j >= d ? 0.f : vslot[s][j];
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -316,10 +302,7 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
             g[2] = -an; g[3] = an; g[5] = -an;
           }
 #pragma unroll
-          for (int s = 0; s < 6; ++s) {
-            if (DSMEM) slot[s][j] = g[s];
-            else __stcg(slot[s] + j, g[s]);
-          }
+          for (int s = 0; s < 6; ++s) slot[s][j] = g[s];
         }
       }
     }
@@ -327,18 +310,13 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
     if (step + 1 < a.nb) {
       // meanwhile: bring the rows of this block's batch rows of the next step
       // into L2, so that its gather does not wait on device memory
-      const int64_t* npos = a.pos + (size_t)(step + 1) * n3;
-      const int64_t* nneg = a.neg + (size_t)(step + 1) * n3;
-      if (DSMEM) {
-        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-        __syncthreads();
-      }
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
       const int lines = (d * (int)sizeof(float) + 127) / 128 + 1;
       for (int e = threadIdx.x; e < 6 * nrows * lines; e += THREADS) {
         const int r = e / lines, ln = e - r * lines;
         const int s = r / nrows, i = row0 + r - s * nrows;
-        const int k = DSMEM ? src[s * B + i] : place(s * B + i);
-        const int64_t id = DSMEM ? next[k] : k < n3 ? npos[k] : nneg[k - n3];
+        const int64_t id = next[src[s * B + i]];
         const char* row = reinterpret_cast<const char*>((s >= 4 ? a.rel : a.ent) + id * d);
         const char* line = reinterpret_cast<const char*>(
             (reinterpret_cast<uintptr_t>(row) & ~(uintptr_t)127) + 128 * ln);
@@ -371,13 +349,13 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
       const int id = ids[kk];
       float* out = (is_rel ? a.rel : a.ent) + (size_t)id * d;
       // the row as the step found it: the copy this occurrence gathered, in
-      // this block's shared memory (else from L2); in flight meanwhile
-      const float* found = DSMEM ? vals + ((size_t)slot_k * rpb + li) * d : out;
+      // this block's shared memory
+      const float* found = vals + ((size_t)slot_k * rpb + li) * d;
       float row[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = 32 * u + lane;
-        row[u] = c >= d ? 0.f : DSMEM ? found[c] : __ldcg(out + c);
+        row[u] = c >= d ? 0.f : found[c];
       }
       bool owned = true;  // no earlier occurrence names the id (128 a round)
       for (int j0 = 0; j0 < kk && owned; j0 += 128) {
@@ -395,7 +373,7 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int c = c0 + 32 * u + lane;
-          if (c0 > 0) row[u] = c >= d ? 0.f : DSMEM ? found[c] : __ldcg(out + c);
+          if (c0 > 0) row[u] = c >= d ? 0.f : found[c];
           acc[u] = 0.f;
         }
         // the gradients of every occurrence of the id, in ascending occurrence order
@@ -412,26 +390,14 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
             while (m) {
               const int o = o0 + j0 + 32 * u + __ffs(m) - 1;
               m &= m - 1;
-              float g[4];
-              if (DSMEM) {
-                const int at = loc[o], blk = at >> 16;
-                const float* gj = grads + (size_t)(at & 0xffff) * d;
-                if (blk != rank) gj = cluster.map_shared_rank(gj, blk);
+              const int at = loc[o], blk = at >> 16;
+              const float* gj = grads + (size_t)(at & 0xffff) * d;
+              if (blk != rank) gj = cluster.map_shared_rank(gj, blk);
 #pragma unroll
-                for (int v = 0; v < 4; ++v) {
-                  const int c = c0 + 32 * v + lane;
-                  g[v] = c < d ? gj[c] : 0.f;
-                }
-              } else {
-                const float* gj = a.grads + (size_t)o * d;
-#pragma unroll
-                for (int v = 0; v < 4; ++v) {
-                  const int c = c0 + 32 * v + lane;
-                  g[v] = c < d ? __ldcg(gj + c) : 0.f;
-                }
+              for (int v = 0; v < 4; ++v) {
+                const int c = c0 + 32 * v + lane;
+                acc[v] = __fadd_rn(acc[v], c < d ? gj[c] : 0.f);
               }
-#pragma unroll
-              for (int v = 0; v < 4; ++v) acc[v] = __fadd_rn(acc[v], g[v]);
             }
           }
         }
@@ -445,33 +411,31 @@ __global__ void __launch_bounds__(THREADS, 1) epoch_kernel(const Args a) {
     cluster_arrive();  // the rows are written, the other blocks' gradients read
     if (step + 1 < a.nb) {  // meanwhile: the next step's occurrence lists
       __syncthreads();      // this block is done with this step's
-      convert(step + 1);
+      convert();
       __syncthreads();
-      if (DSMEM && step + 2 < a.nb)
+      if (step + 2 < a.nb)
         copy_ids(next, a.pos + (size_t)(step + 2) * n3, a.neg + (size_t)(step + 2) * n3, n3);
     }
     cluster_wait();
   }
 }
 
-template <int MODE, bool DSMEM>
-int launch(const Args& a, int cluster_blocks, cudaStream_t s) {
-  auto kern = epoch_kernel<MODE, DSMEM>;
-  const size_t smem = smem_bytes(a.B, a.d, a.rpb, DSMEM);
+template <int MODE>
+int launch(const Args& a, cudaStream_t s) {
+  auto kern = epoch_kernel<MODE>;
+  const size_t smem = smem_bytes(a.B, a.d, a.rpb);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  if (cluster_blocks > 8) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster_blocks;
+  attr[0].val.clusterDim.x = (unsigned)CLUSTER;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster_blocks, 1, 1);
+  cfg.gridDim = dim3((unsigned)CLUSTER, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -503,41 +467,31 @@ inline int on_device(int device, F&& fn) {
 
 }  // namespace sparse_update
 
-// Shared memory one block of a `cluster_blocks` cluster needs for batch B at
-// width d, with the gradient rows in distributed shared memory (dsmem != 0)
-// or in the global buffer.
-extern "C" long long sparse_update_smem_bytes(int B, int d, int cluster_blocks, int dsmem) {
-  const int rpb = (B + cluster_blocks - 1) / cluster_blocks;
-  return (long long)sparse_update::smem_bytes(B, d, rpb, dsmem != 0);
+// Shared memory one block of the cluster needs for batch B at width d.
+extern "C" long long sparse_update_smem_bytes(int B, int d) {
+  const int rpb = (B + sparse_update::CLUSTER - 1) / sparse_update::CLUSTER;
+  return (long long)sparse_update::smem_bytes(B, d, rpb);
 }
 
 // nb steps over pos / neg (nb, B, 3) int64, in place on ent (E, d) and rel
-// (R, d), losses (nb,); grads is a (6B, d) float buffer, or null to keep the
-// gradient rows in the cluster's shared memory.
+// (R, d), losses (nb,).
 extern "C" int sparse_update_epoch(void* ent, void* rel, const void* pos, const void* neg,
-                                   void* losses, void* grads, int nb, int B, long long E,
-                                   long long R, int d, float lr, float margin, int mode,
-                                   int cluster_blocks, int device, void* stream) {
+                                   void* losses, int nb, int B, long long E, long long R, int d,
+                                   float lr, float margin, int mode, int device, void* stream) {
   using namespace sparse_update;
-  if (nb <= 0 || B <= 0 || d <= 0 || E <= 0 || R <= 0 || E > INT32_MAX || R > INT32_MAX ||
-      cluster_blocks < 1 || cluster_blocks > 16)
+  if (nb <= 0 || B <= 0 || d <= 0 || E <= 0 || R <= 0 || E > INT32_MAX || R > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const bool dsmem = grads == nullptr;
-  const int rpb = (B + cluster_blocks - 1) / cluster_blocks;
-  if (smem_bytes(B, d, rpb, dsmem) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int rpb = (B + CLUSTER - 1) / CLUSTER;
+  if (smem_bytes(B, d, rpb) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   Args a{static_cast<float*>(ent), static_cast<float*>(rel),
          static_cast<const int64_t*>(pos), static_cast<const int64_t*>(neg),
-         static_cast<float*>(losses), static_cast<float*>(grads), E, R, nb, B, d, rpb, lr,
-         margin};
+         static_cast<float*>(losses), E, R, nb, B, d, rpb, lr, margin};
   auto s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&]() -> int {
-    switch (mode * 2 + (dsmem ? 1 : 0)) {
-      case 2 * L1 + 1: return launch<L1, true>(a, cluster_blocks, s);
-      case 2 * L1: return launch<L1, false>(a, cluster_blocks, s);
-      case 2 * L2 + 1: return launch<L2, true>(a, cluster_blocks, s);
-      case 2 * L2: return launch<L2, false>(a, cluster_blocks, s);
-      case 2 * DOT + 1: return launch<DOT, true>(a, cluster_blocks, s);
-      case 2 * DOT: return launch<DOT, false>(a, cluster_blocks, s);
+    switch (mode) {
+      case L1: return launch<L1>(a, s);
+      case L2: return launch<L2>(a, s);
+      case DOT: return launch<DOT>(a, s);
       default: return (int)cudaErrorInvalidValue;
     }
   });

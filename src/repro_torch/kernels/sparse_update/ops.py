@@ -38,37 +38,32 @@ LAUNCHES: Dict[str, int] = {"sparse_sgd_step": 0}
 #: SGD steps those launches ran
 STEPS: Dict[str, int] = {"sparse_sgd_step": 0}
 
-#: blocks of the one thread-block cluster an epoch runs on: 16, which needs
-#: the non-portable opt-in (the kernel makes it), measured faster than the
-#: portable 8 on the H100 (PERF.md)
+#: blocks of the one thread-block cluster an epoch runs on (the kernel's
+#: ``CLUSTER``): 16, which needs the non-portable opt-in (the kernel makes
+#: it), measured faster than the portable 8 on the H100 (PERF.md)
 CLUSTER_BLOCKS = 16
 #: the shared memory a Hopper block may opt in to
 _SMEM_LIMIT = 232_448
 
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_SIGNATURE = [_VP] * 6 + [_I, _I, _LL, _LL, _I, _F, _F, _I, _I, _I, _VP]
+_SIGNATURE = [_VP] * 5 + [_I, _I, _LL, _LL, _I, _F, _F, _I, _I, _VP]
 
 
-def smem_bytes(b: int, d: int, cluster: int, dsmem: bool) -> int:
-    """Shared memory of one block (the kernel's ``smem_bytes``): with
-    ``dsmem`` the next step's ids (int64), the block's gradient rows and the
-    rows it gathered, where each occurrence's id sits in a step's ids and
-    its place among the rows; always the hinges and the occurrence ids."""
-    rpb = -(-b // cluster)
-    n = 16 * 6 * b + 4 * 12 * rpb * d if dsmem else 0
-    return n + 4 * rpb + 4 * 6 * b
+def smem_bytes(b: int, d: int) -> int:
+    """Shared memory of one block of the cluster (the kernel's
+    ``smem_bytes``): the next step's ids (int64), the block's gradient rows
+    and the rows it gathered, its hinges, and for every occurrence its id,
+    where it sits in a step's ids and its place among the rows."""
+    rpb = -(-b // CLUSTER_BLOCKS)
+    return 20 * 6 * b + 4 * 12 * rpb * d + 4 * rpb
 
 
-def grads_in_dsmem(b: int, d: int, cluster: int = CLUSTER_BLOCKS) -> bool:
-    """Whether a batch keeps its gradient rows in the cluster's shared memory
-    (else in a global buffer); raises when it fits neither way."""
-    if smem_bytes(b, d, cluster, True) <= _SMEM_LIMIT:
-        return True
-    if smem_bytes(b, d, cluster, False) <= _SMEM_LIMIT:
-        return False
-    raise ValueError(f"fused_sparse_epoch: B={b}, d={d} needs "
-                     f"{smem_bytes(b, d, cluster, False)} bytes of shared memory per "
-                     f"block, over {_SMEM_LIMIT}")
+def check_batch(b: int, d: int) -> None:
+    """Raises unless a batch of ``b`` rows of width ``d`` fits the
+    cluster's shared memory."""
+    if smem_bytes(b, d) > _SMEM_LIMIT:
+        raise ValueError(f"fused_sparse_epoch: B={b}, d={d} needs {smem_bytes(b, d)} bytes "
+                         f"of shared memory per block, over {_SMEM_LIMIT}")
 
 
 def reset_launches() -> None:
@@ -190,7 +185,7 @@ def sparse_epoch_plain(ent, rel, pos, neg, lr: float, *, mode: str = "l1",
 # ------------------------------------------------------------------ wrappers
 def fused_sparse_epoch(ent: torch.Tensor, rel: torch.Tensor, pos: torch.Tensor,
                        neg: torch.Tensor, lr: float, *, mode: str = "l1",
-                       margin: float = 4.0, cluster: int = CLUSTER_BLOCKS) -> torch.Tensor:
+                       margin: float = 4.0) -> torch.Tensor:
     """``nb`` fused gather→score→scatter SGD steps in one launch → the step
     losses (nb,), on the tables' device (reading them is the caller's choice
     of a sync). ``ent`` and ``rel`` are updated in place.
@@ -199,35 +194,29 @@ def fused_sparse_epoch(ent: torch.Tensor, rel: torch.Tensor, pos: torch.Tensor,
     int64 ids, which must lie in range (on the card an id out of range
     trips a device-side assert). ``lr`` and ``margin`` are floats, rounded
     to float32 as the JAX package rounds them. On the card the epoch runs on
-    one cluster of ``cluster`` blocks (16 or 8). A batch whose gradient rows
-    fit the cluster's shared memory (48·d·B/cluster + 120·B bytes per block,
-    the gradients and the gathered rows: B ≤ 544 at d = 100 with 16 blocks)
-    keeps them there; a larger one keeps them in a global buffer, and only
-    its ids and hinges stay in shared memory (24·B + 4·B/cluster bytes ≤
-    227 KB: B ≤ 9,585 with 16 blocks). Past that the wrapper raises."""
+    one cluster of ``CLUSTER_BLOCKS`` blocks, and the batch must fit its
+    shared memory: 48·d·⌈B/16⌉ + 120·B bytes per block ≤ 227 KB, so
+    B ≤ 544 at d = 100 (the trainer takes 100). Past that the wrapper
+    raises."""
     if mode not in SPARSE_MODES:
         raise ValueError(f"unknown sparse mode {mode!r} {SPARSE_MODES}")
     if pos.dim() != 3 or pos.shape[2] != 3 or neg.shape != pos.shape or 0 in pos.shape[:2]:
         raise ValueError(f"fused_sparse_epoch: expected pos and neg (nb, B, 3) with nb, B >= 1,"
                          f" got {tuple(pos.shape)} and {tuple(neg.shape)}")
-    if cluster not in (8, 16):
-        raise ValueError(f"fused_sparse_epoch: cluster of {cluster} blocks (16 or 8)")
     dev = _check_inputs(ent, rel, pos, neg, "fused_sparse_epoch")
     lr = float(lr)
     if dev.type == "cpu":
         return sparse_epoch_plain(ent, rel, pos, neg, lr, mode=mode, margin=margin)
     nb, b = pos.shape[:2]
     d = ent.shape[1]
+    check_batch(b, d)
     losses = torch.empty(nb, dtype=torch.float32, device=dev)
-    grads = (None if grads_in_dsmem(b, d, cluster)
-             else torch.empty(6 * b, d, dtype=torch.float32, device=dev))
     fn, cdll = _entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ent.data_ptr(), rel.data_ptr(), pos.data_ptr(), neg.data_ptr(),
-                losses.data_ptr(), None if grads is None else grads.data_ptr(), nb, b,
-                ent.shape[0], rel.shape[0], d, lr, float(margin), _MODE_IDS[mode], cluster,
-                dev.index, stream)
+                losses.data_ptr(), nb, b, ent.shape[0], rel.shape[0], d, lr, float(margin),
+                _MODE_IDS[mode], dev.index, stream)
     if rc != 0:
         msg = cdll.sparse_update_error_string(rc).decode()
         raise RuntimeError(f"sparse_sgd_step kernel launch failed: {msg} (cudaError {rc})")

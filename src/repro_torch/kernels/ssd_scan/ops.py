@@ -31,6 +31,7 @@ same function, and the tests hold this port's kernel path against both.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -72,13 +73,14 @@ def smem_bytes(p: int, g: int, q: int) -> int:
     return 4 * (max(y_phase, state_phase) + (2 * g + 1) * q)
 
 
+@functools.lru_cache(maxsize=None)
 def head_group(b: int, h: int, nc: int, q: int, p: int, n: int, sms: int) -> int:
     """Heads per block: the G that finishes the grid (ceil(H / G), NC, B) of
     one-block-per-SM launches soonest on ``sms`` SMs. A wave costs G heads'
     products plus the C·Bᵀ band the block forms once for them (``s_cost``
     heads' worth); ties go to the smaller G. G is capped by shared memory
     (cum and dt of G heads) and the block's 256 threads (one per head sums
-    cum)."""
+    cum). Cached: the LM path asks once per layer and request."""
     head = q * q / 2 * p + q * p * n          # W·x over the triangle, and the state
     s_cost = (q * q / 2 * n) / head            # C·Bᵀ over the triangle
     best, best_cost = 1, math.inf
@@ -90,6 +92,11 @@ def head_group(b: int, h: int, nc: int, q: int, p: int, n: int, sms: int) -> int
         if cost < best_cost:
             best, best_cost = g, cost
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launches() -> None:
@@ -191,13 +198,12 @@ def _for_copies(t: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
-               cm: torch.Tensor, *, group: Optional[int] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Intra-chunk SSD: (y_intra, chunk_state, exp(cum)); see the module
     docstring for the layout. On the card all inputs are float32, the last
     dimension of x, B and C contiguous, P one of ``HEAD_DIMS``; views whose
-    rows the kernel's 16-byte copies cannot read are copied first.
-    ``group`` fixes the heads per block (default ``head_group``'s choice)."""
+    rows the kernel's 16-byte copies cannot read are copied first. A block
+    serves ``head_group``'s choice of heads."""
     dev = _check_inputs(x, dt, a, bm, cm)
     if dev.type == "cpu":
         return ssd_chunks_plain(x, dt, a, bm, cm)
@@ -209,12 +215,7 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Ten
     decay = torch.empty(b, nc, q, h, dtype=torch.float32, device=dev).permute(0, 3, 1, 2)
     if b * h * nc == 0:
         return y, state, decay
-    if group is None:
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        group = head_group(b, h, nc, q, p, n, sms)
-    if not 1 <= group <= min(h, _THREADS) or smem_bytes(p, group, q) > _SMEM_LIMIT:
-        raise ValueError(f"ssd_chunks: {group} heads per block do not fit (H={h}, P={p}, "
-                         f"Q={q})")
+    group = head_group(b, h, nc, q, p, n, _sm_count(dev.index))
     x, bm, cm = _for_copies(x), _for_copies(bm), _for_copies(cm)
     a = a.reshape(h).contiguous()
     strides = [*x.stride()[:4], *dt.stride(), *bm.stride()[:3], *cm.stride()[:3],

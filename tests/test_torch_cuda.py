@@ -20,7 +20,7 @@ epoch in one cluster launch) is held the same way against the plain step
 loop: bit-equal over l1 epochs on dyadic tables (the tables stay exact), on
 a 12-row table too, where every step re-reads rows the step before wrote
 on another SM; within 1e-5 after 64 steps at Dbpedia's size; bit-equal
-between reruns and between clusters of 8 and 16 blocks.
+between reruns.
 
 The cosine kernel agrees with its plain version within atol 1e-5 (zero rows
 give exactly 0); blockwise CSLS argmaxes equal the full matrix's up to
@@ -56,7 +56,6 @@ from repro_torch.kernels.sparse_update import (
     sparse_epoch_plain,
     sparse_step_plain,
 )
-from repro_torch.kernels.sparse_update.ops import grads_in_dsmem
 from repro_torch.kge.models import KGEModel, params_from_numpy
 from repro_torch.kge.trainer import KGETrainer
 from repro_torch.serving import KGECandidateRanker, KGEServingTier
@@ -200,7 +199,7 @@ def _step_tables(rng, e, r, d, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
 @pytest.mark.parametrize("b,d", [(100, 100), (37, 33), (1, 7), (257, 128), (8, 1),
-                                 (4096, 100)])
+                                 (544, 100)])
 def test_sparse_step_matches_plain(cuda_dev, mode, b, d):
     rng = np.random.default_rng(b * 131 + d)
     e, r = 5000, 40
@@ -325,16 +324,16 @@ def test_sparse_epoch_tiny_table_matches_plain(cuda_dev, mode):
 @pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
 def test_sparse_epoch_64_steps_at_dbpedia_size(cuda_dev, mode):
     """64 steps at the training shape (E = 491,078, R = 14,085, d = 100,
-    B = 100): within 1e-5 of the plain loop on the card; two runs, and runs
-    on clusters of 8 and 16 blocks, bit-equal."""
+    B = 100): within 1e-5 of the plain loop on the card; three runs
+    bit-equal."""
     rng = np.random.default_rng(64)
     e, r, d, b, nb = 491_078, 14_085, 100, 100, 64
     start = _step_tables(rng, e, r, d, cuda_dev)
     pos, neg = _epoch(rng, e, r, b, nb, cuda_dev)
     runs = []
-    for cluster in (8, 8, 16):
+    for _ in range(3):
         ent, rel = (t.clone() for t in start)
-        losses = fused_sparse_epoch(ent, rel, pos, neg, 0.5, mode=mode, cluster=cluster)
+        losses = fused_sparse_epoch(ent, rel, pos, neg, 0.5, mode=mode)
         runs.append((ent, rel, losses))
     pe, pr = (t.clone() for t in start)
     pl = sparse_epoch_plain(pe, pr, pos, neg, 0.5, mode=mode)
@@ -347,12 +346,10 @@ def test_sparse_epoch_64_steps_at_dbpedia_size(cuda_dev, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,dsmem", [(544, True), (545, False), (9585, False)])
-def test_sparse_epoch_at_the_batch_caps(cuda_dev, b, dsmem):
-    """The largest batch whose gradient rows fit the cluster's shared memory
-    at d = 100 (16 blocks), the next one (a global buffer), and the largest
-    the kernel takes; one past that raises."""
-    assert grads_in_dsmem(b, 100) == dsmem
+@pytest.mark.parametrize("b", [100, 544])
+def test_sparse_epoch_at_the_batch_caps(cuda_dev, b):
+    """The trainer's batch and the largest batch whose gradient rows fit the
+    cluster's shared memory at d = 100; one past that raises."""
     rng = np.random.default_rng(b)
     e, r, d, nb = 5000, 40, 100, 3
     ent, rel = _step_tables(rng, e, r, d, cuda_dev)
@@ -364,7 +361,7 @@ def test_sparse_epoch_at_the_batch_caps(cuda_dev, b, dsmem):
     torch.testing.assert_close(ent, pe, atol=1e-5, rtol=0)
     torch.testing.assert_close(rel, pr, atol=1e-5, rtol=0)
     torch.testing.assert_close(kl, pl, rtol=1e-5, atol=1e-6)
-    if b == 9585:
+    if b == 544:
         big = torch.zeros(1, b + 1, 3, dtype=torch.int64, device=cuda_dev)
         with pytest.raises(ValueError, match="shared memory"):
             fused_sparse_epoch(ent, rel, big, big, 0.5)
@@ -701,9 +698,8 @@ def test_shared_memory_sizes_in_python_equal_the_kernels(cuda_dev):
 
     sp = sops.STEP_LIB.load().sparse_update_smem_bytes
     sp.restype = ctypes.c_longlong
-    for b, d, cluster in [(100, 100, 16), (100, 100, 8), (576, 100, 16), (9585, 33, 16), (1, 1, 8)]:
-        for dsmem in (True, False):
-            assert sp(b, d, cluster, int(dsmem)) == sops.smem_bytes(b, d, cluster, dsmem)
+    for b, d in [(100, 100), (544, 100), (576, 100), (1056, 33), (1, 1)]:
+        assert sp(b, d) == sops.smem_bytes(b, d)
     sd = kops.SSD_LIB.load().ssd_chunks_smem_bytes
     sd.restype = ctypes.c_longlong
     for p in kops.HEAD_DIMS:
@@ -711,32 +707,37 @@ def test_shared_memory_sizes_in_python_equal_the_kernels(cuda_dev):
             assert sd(p, g, q) == kops.smem_bytes(p, g, q)
 
 
-def _ssd_check(ks, args, group=None):
-    got = ks.ssd_chunks(*args, group=group)
+def _ssd_check(ks, args):
+    got = ks.ssd_chunks(*args)
     want = ks.ssd_chunks_plain(*args)
     torch.cuda.synchronize()
     for name, x_, y_ in zip(("y_intra", "state", "decay"), got, want):
         assert x_.shape == y_.shape, name
         err = float((x_ - y_).abs().max())
-        assert err <= 1e-5 * float(y_.abs().max()), (name, group, err, float(y_.abs().max()))
+        assert err <= 1e-5 * float(y_.abs().max()), (name, err, float(y_.abs().max()))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group", [None, 1, 2, 3, 4, 7])
-def test_ssd_chunks_head_groups(cuda_dev, group):
-    """Seven heads in blocks of G that do not divide them (the last block's
-    group is shorter), and the wrapper's own choice: within 1e-5 of the
-    plain version's largest magnitude, on every output."""
+@pytest.mark.parametrize("b,h,nc,group", [(1, 7, 2, None), (2, 7, 16, 2), (4, 5, 16, 3),
+                                         (4, 7, 16, 4)])
+def test_ssd_chunks_head_groups(cuda_dev, b, h, nc, group):
+    """Shapes on which the wrapper (on the H100's 132 SMs) puts H heads in
+    blocks of G that do not divide them, so the last block's group is
+    shorter, and a small one of its own choice: within 1e-5 of the plain
+    version's largest magnitude, on every output."""
     from repro_torch.kernels import ssd_scan as ks
 
     g = torch.Generator(device=cuda_dev).manual_seed(77)
-    b, s, h, p, n, chunk = 1, 512, 7, 64, 128, 256
+    p, n, chunk = 64, 128, 256
+    s = nc * chunk
+    if group is not None:
+        sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+        assert ks.ops.head_group(b, h, nc, chunk, p, n, sms) == group and h % group
     x, dt, a, bm, cm = _ssd_inputs(g, cuda_dev, b, s, h, p, n)
-    nc = s // chunk
     args = (x.reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4),
             dt.reshape(b, nc, chunk, h).permute(0, 3, 1, 2), a,
             bm.reshape(b, nc, chunk, n), cm.reshape(b, nc, chunk, n))
-    _ssd_check(ks, args, group)
+    _ssd_check(ks, args)
 
 
 @pytest.mark.cuda

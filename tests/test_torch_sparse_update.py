@@ -35,7 +35,7 @@ from repro_torch.kernels.sparse_update import (
     sparse_step_plain,
     sparse_step_ref,
 )
-from repro_torch.kernels.sparse_update.ops import grads_in_dsmem, smem_bytes
+from repro_torch.kernels.sparse_update.ops import check_batch, smem_bytes
 
 E, R, D, B = 48, 5, 16, 8
 
@@ -242,21 +242,17 @@ def test_epoch_wrapper_rejects_what_the_kernel_does_not_take():
         fused_sparse_epoch(ent, rel, pos[:0], pos[:0], 0.5)
     with pytest.raises(ValueError, match=r"\(nb, B, 3\)"):
         fused_sparse_epoch(ent, rel, pos, pos[:1], 0.5)
-    with pytest.raises(ValueError, match="cluster"):
-        fused_sparse_epoch(ent, rel, pos, pos, 0.5, cluster=4)
     with pytest.raises(ValueError, match=r"\(E, d\)"):
         fused_sparse_epoch(ent, torch.zeros(R, D + 1), pos, pos, 0.5)
 
 
-@pytest.mark.parametrize("cluster,d,dsmem_cap,cap", [(16, 100, 544, 9585), (8, 100, 320, 9487),
-                                                      (16, 128, 451, 9585)])
-def test_batch_caps_of_the_two_gradient_layouts(cluster, d, dsmem_cap, cap):
+@pytest.mark.parametrize("d,cap", [(100, 544), (33, 1056), (128, 451)])
+def test_batch_cap_of_the_cluster_shared_memory(d, cap):
     """The kernel's shared memory per block (``smem_bytes``, mirrored in the
-    CUDA source): gradient rows in the cluster's shared memory up to
-    ``dsmem_cap``, in a global buffer up to ``cap``, and a raise past it."""
-    assert grads_in_dsmem(1, d, cluster) and grads_in_dsmem(dsmem_cap, d, cluster)
-    assert not grads_in_dsmem(dsmem_cap + 1, d, cluster)
-    assert not grads_in_dsmem(cap, d, cluster)
-    assert smem_bytes(cap, d, cluster, False) <= 232_448 < smem_bytes(cap + 1, d, cluster, False)
+    CUDA source): the gradient rows of a batch of up to ``cap`` rows fit the
+    cluster's shared memory, and one more row raises."""
+    check_batch(1, d)
+    check_batch(cap, d)
+    assert smem_bytes(cap, d) <= 232_448 < smem_bytes(cap + 1, d)
     with pytest.raises(ValueError, match="shared memory"):
-        grads_in_dsmem(cap + 1, d, cluster)
+        check_batch(cap + 1, d)
