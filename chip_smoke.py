@@ -34,14 +34,17 @@ Phases (every failed check ends the run with a non-zero exit):
    launch counters are zeroed just before the tier is built and read just
    after the drain; sampled batches are then re-checked against the plain
    versions on the card;
-4. timings at the serving batch (B = 64): first each kernel's whole output
-   at the timed shapes (every top-k chunk, the ragged last one included) is
-   held against its plain version with the rules of phase 2; then kernel,
-   plain version and the library yardstick (``torch.cdist`` / ``q @ ent.T``, timed only), each the
-   median of CUDA-event-timed runs, beside the least time the card could
-   take (bytes over memory rate, operations over the fp32 rate); then the
-   host-clock time of one 64-row rank and top-k request, and a
-   ``torch.profiler`` trace of the tier draining a burst: device time by
+4. timings at the serving batch (B = 64, l1), then at B = 8 and in dot
+   mode on the same rows: first each kernel's whole output at the timed
+   shapes (every top-k chunk, the ragged last one included) is held against
+   its plain version with the rules of phase 2; then kernel, plain version
+   and the library yardstick (``torch.cdist`` / ``q @ ent.T`` with TF32
+   off, timed only), each the median of CUDA-event-timed runs, beside the
+   least time the card could take (bytes over the memory rate, or the
+   mode's fp32 instructions over the fp32 pipe's instruction rate:
+   ``score_ops``); then the host-clock time of one 64-row rank and top-k
+   request, a ``torch.profiler`` window over one top-k request (host time
+   by operator), and a trace of the tier draining a burst: device time by
    kernel and the device's idle share;
 5. the sparse SGD kernel against its plain version on the card, for l1, l2
    and dot, at the training shape (E = 491,078, R = 14,085, d = 100,
@@ -476,22 +479,45 @@ def time_ms(torch, fn, iters, warmup=3):
     return statistics.median(times)
 
 
-def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
-    """Kernel, plain and library times at the serving batch, with bounds."""
+def score_ops(mode, b, e, d):
+    """(fp32 instructions, square roots) of a (B, E) score matrix in ``mode``:
+    l1 two instructions per element (a subtract, then an add with the |.|
+    modifier); dot one FMA per element; l2 one FMA per element, the norms
+    (E·d + B·d FMAs) and a root per score; cl1 six per complex pair (two
+    subtracts, a multiply, an FMA, the 1e-12, the sum) and a root per pair."""
+    if mode == "l1":
+        return 2 * b * e * d, 0
+    if mode == "dot":
+        return b * e * d, 0
+    if mode == "l2":
+        return b * e * d + e * d + b * d, b * e
+    return 6 * b * e * (d // 2), b * e * (d // 2)
+
+
+def score_bound(mode, b, e, d, nbytes, card):
+    """Least time of a triple_score kernel: the bytes at the memory rate,
+    or its fp32 instructions at the fp32 pipe's instruction rate (half the
+    FMA FLOP rate: 33.5 T/s on an H100 SXM) and its roots at the
+    special-function rate (an eighth of that), whichever is longer."""
     mem_rate, fp32_rate, _ = peak_rates(card)
-    e, d = params["ent"].shape
-    b = SERVE_BATCH
-    g = torch.Generator(device=dev).manual_seed(5)
-    h = torch.randint(0, e, (b,), device=dev, generator=g)
-    r = torch.randint(0, m.num_relations, (b,), device=dev, generator=g)
-    t = torch.randint(0, e, (b,), device=dev, generator=g)
-    q, table, mode = models.lp_query_tails(params, m, h, r)
-    q = q.contiguous()
-    gold = models.lp_gold_scores(q, table, t, mode)
-    filt = torch.as_tensor(known_filters.rows_for(h.cpu().numpy(), r.cpu().numpy()), device=dev)
-    filt = torch.cat([t.int()[:, None], filt], 1).contiguous()
+    instr, roots = score_ops(mode, b, e, d)
+    t_bytes = nbytes / mem_rate
+    t_ops = max(instr / (fp32_rate / 2), roots / (fp32_rate / 16))
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, instructions=instr, roots=roots)
+
+
+def score_kernel_times(torch, ops, q, table, gold, filt, mode, chunk, card):
+    """Both triple_score kernels at one batch: each output at exactly the
+    timed shapes (every top-k chunk, the ragged last one included) held
+    against its plain version with the rules of phase 2, then kernel, plain
+    version and library yardstick timed beside the bound. ``ops`` is a
+    ``triple_score.ops`` module (``tools/time_triple_score.py`` passes
+    another checkout's)."""
+    b, d = q.shape
+    e = table.shape[0]
     f = filt.shape[1]
-    chunk = engine.CUDA_TOPK_CHUNK
     chunks = [(c0, min(c0 + chunk, e)) for c0 in range(0, e, chunk)]
     out = {}
 
@@ -508,8 +534,6 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     def fused_plain():
         return ops.fused_ranks_plain(q, table, gold, filt, mode, block_e=16384)
 
-    # the outputs at exactly the shapes timed below, each chunk of the top-k
-    # path's batch (the ragged last one too) held whole against the plain version
     kernel_chunks, plain_chunks = pairwise(), pairwise_plain()
     pair_err = 0.0
     for (c0, c1), got, want in zip(chunks, kernel_chunks, plain_chunks):
@@ -519,54 +543,76 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
     plain_scores = torch.cat(plain_chunks, 1)
     del kernel_chunks, plain_chunks
     ndiff, rank_err = check_ranks(torch, fused(), fused_plain(), plain_scores, gold,
-                                  f"fused ranks B={b} E={e} F={f}")
+                                  f"fused ranks {mode} B={b} E={e} F={f}")
     del plain_scores
-    log(f"check at the timed shapes: pairwise over {len(chunks)} chunks (last "
-        f"{chunks[-1][1] - chunks[-1][0]} rows) max|err|={pair_err:.3g} ok; rank counts "
-        f"differ on {ndiff}/{b} queries, all within near-ties")
+    log(f"check at the timed shapes ({mode}, B={b}): pairwise over {len(chunks)} chunks "
+        f"(last {chunks[-1][1] - chunks[-1][0]} rows) max|err|={pair_err:.3g} ok; rank "
+        f"counts differ on {ndiff}/{b} queries, all within near-ties")
 
     # fused ranks: one launch over the whole table per batch
-    nbytes = 4 * (b * d + e * d + b + b * f + b)
-    flops = 2 * b * e * d
-    bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
     out["fused_ranks"] = dict(
         ms=time_ms(torch, fused, ITERS),
         device_ms=time_device_ms(torch, fused, DEVICE_CALLS, DEVICE_RUNS),
-        plain_ms=time_ms(torch, fused_plain, max(3, ITERS // 4)),
-        library_ms=None, bound_ms=bound_ms,
-        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        plain_ms=time_ms(torch, fused_plain, max(3, ITERS // 4)), library_ms=None,
+        **score_bound(mode, b, e, d, 4 * (b * d + e * d + b + b * f + b), card),
         shape=f"B={b} E={e} d={d} F={f} mode={mode}", launches_per_batch=1,
-        bytes=nbytes, flops=flops, max_abs_err=rank_err,
+        max_abs_err=rank_err,
     )
 
     # pairwise scores: the top-k path's launches over one batch, chunk by chunk
-    p = 1 if mode == "l1" else 2
-
     def library():
         for c0, c1 in chunks:
             if mode == "dot":
                 q @ table[c0:c1].T
             else:
-                torch.cdist(q, table[c0:c1], p=p)
+                torch.cdist(q, table[c0:c1], p=1 if mode == "l1" else 2)
 
-    nbytes = 4 * (b * d + e * d + b * e)
-    bound_ms = 1e3 * max(nbytes / mem_rate, flops / fp32_rate)
     out["pairwise_scores"] = dict(
         ms=time_ms(torch, pairwise, ITERS),
         device_ms=time_device_ms(torch, pairwise, DEVICE_CALLS, DEVICE_RUNS),
         plain_ms=time_ms(torch, pairwise_plain, max(3, ITERS // 4)),
-        library_ms=time_ms(torch, library, ITERS), bound_ms=bound_ms,
-        bound_by="bytes" if nbytes / mem_rate >= flops / fp32_rate else "operations",
+        library_ms=time_ms(torch, library, ITERS),
+        **score_bound(mode, b, e, d, 4 * (b * d + e * d + b * e), card),
         shape=f"B={b} E={e} d={d} mode={mode}, {len(chunks)} launches of <= {chunk} rows",
-        launches_per_batch=len(chunks), bytes=nbytes, flops=flops, max_abs_err=pair_err,
+        launches_per_batch=len(chunks), max_abs_err=pair_err,
     )
     for name in ("fused_ranks", "pairwise_scores"):
         x = out[name]
         lib = "n/a" if x["library_ms"] is None else f"{x['library_ms']:.4f}"
         log(f"time {name} [{x['shape']}]: kernel {x['ms']:.4f} ms ({x['device_ms']:.4f} ms "
-            f"device time), plain {x['plain_ms']:.4f} ms, "
-            f"library {lib} ms, bound {x['bound_ms']:.4f} ms ({x['bound_by']}), "
-            f"{100 * x['bound_ms'] / x['ms']:.1f}% of bound; {card}")
+            f"device time), plain {x['plain_ms']:.4f} ms, library {lib} ms, bound "
+            f"{x['bound_ms']:.4f} ms ({x['bound_by']}: {x['bytes']:.4g} B, "
+            f"{x['instructions']:.4g} fp32 instructions), {100 * x['bound_ms'] / x['ms']:.1f}% "
+            f"of bound ({100 * x['bound_ms'] / x['device_ms']:.1f}% by device time); {card}")
+    return out
+
+
+#: batches timed beside the serving batch: (label, mode, rows)
+SCORE_SHAPES = (("l1 B=8", "l1", 8), ("dot B=64", "dot", SERVE_BATCH))
+
+
+def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
+    """Kernel, plain and library times at the serving batch (B = 64, the
+    model's mode), then at B = 8 and in dot mode on the same rows."""
+    e = params["ent"].shape[0]
+    b = SERVE_BATCH
+    g = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randint(0, e, (b,), device=dev, generator=g)
+    r = torch.randint(0, m.num_relations, (b,), device=dev, generator=g)
+    t = torch.randint(0, e, (b,), device=dev, generator=g)
+    q, table, mode = models.lp_query_tails(params, m, h, r)
+    q = q.contiguous()
+    filt = torch.as_tensor(known_filters.rows_for(h.cpu().numpy(), r.cpu().numpy()), device=dev)
+    filt = torch.cat([t.int()[:, None], filt], 1).contiguous()
+    out = score_kernel_times(torch, ops, q, table, models.lp_gold_scores(q, table, t, mode),
+                             filt, mode, engine.CUDA_TOPK_CHUNK, card)
+    out["shapes"] = {}
+    for label, mode_, rows in SCORE_SHAPES:
+        qs = q[:rows].contiguous()
+        gold = models.lp_gold_scores(qs, table, t[:rows], mode_)
+        out["shapes"][label] = score_kernel_times(torch, ops, qs, table, gold,
+                                                  filt[:rows].contiguous(), mode_,
+                                                  engine.CUDA_TOPK_CHUNK, card)
     return out
 
 
@@ -588,7 +634,34 @@ def request_times(torch, np, serving, m, params, filters, card):
         out[name] = statistics.median(times)
     log(f"time requests (B={SERVE_BATCH}, ranker, host clock): rank {out['rank_ms']:.3f} ms, "
         f"top-k k=20 {out['topk_k20_ms']:.3f} ms; {card}")
+    out["topk_host_split"] = topk_host_split(
+        torch, lambda: ranker.topk_tails(q[:, 0], q[:, 1], k=20), card)
     return out
+
+
+def topk_host_split(torch, request, card):
+    """Where the host's time of one top-k request goes: a ``torch.profiler``
+    window over one request, operators by self CPU time (device time beside),
+    and the window's host-clock total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    request()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        request()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    cpu_ms = sum(a.self_cpu_time_total for a in rows) / 1e3
+    top = [(a.key[:60], a.count, a.self_cpu_time_total / 1e3,
+            getattr(a, "self_device_time_total", getattr(a, "self_cuda_time_total", 0)) / 1e3)
+           for a in rows[:12]]
+    log(f"top-k host split (one 64-row request under the profiler): {wall_ms:.3f} ms host "
+        f"clock, {cpu_ms:.3f} ms self CPU time in operators; {card}")
+    for name, count, cpu, devt in top:
+        log(f"top-k host split:   {cpu:8.3f} ms CPU {devt:8.3f} ms device  x{count:<4d} {name}")
+    return {"wall_ms": wall_ms, "cpu_ms": cpu_ms, "top": top}
 
 
 def profile_serving(torch, np, tier, m, seed, card):

@@ -7,137 +7,137 @@
 //
 // The TPU kernel accumulates into one output block revisited across a
 // sequential entity grid. Hopper runs blocks in parallel and in no order,
-// and serving batches are 8-64 rows, so a grid over query blocks alone would
-// fill at most a handful of the 132 SMs. This kernel splits the ENTITY axis
-// across blocks instead: each block loops over entity tiles (a persistent
-// grid sized by occupancy), stages each tile in shared memory, scores it
-// against every query of its query tile, counts beats per query with a warp
-// ballot, and at the end adds its int32 partial counts to the output with
-// one atomicAdd per query. Integer atomics keep the count exact in any order,
-// and the table is read from device memory once per batch.
+// so this kernel splits the ENTITY axis across a persistent grid instead:
+// each block walks its entity tiles with the register micro-kernel of
+// tile_score.cuh (a copying warp streams the tiles into two buffers) and
+// counts, per query, the entities that beat gold in per-thread integer
+// counters. At the end a warp reduction and a shared-memory sum give one
+// global atomicAdd per (block, query). Integer atomics keep the count exact in any order, and at
+// B <= 64 one query tile covers the batch, so the table is read from device
+// memory once per batch.
 //
-// What bounds it: at the serving shape (B = 64, E = 491,078, d = 100) the
-// table read is E*d*4 = 196 MB (59 us at 3.35 TB/s) and the arithmetic is
-// about 2*B*E*d = 6.3 GFLOP of fp32 (94 us at 67 TFLOP/s), so the bound is
-// the fp32 pipe. This simple version executes one shared-memory load per
-// fused sub/abs/add for the query operand (a broadcast) and amortizes the
-// entity operand over QB = 4 queries, so shared-memory throughput, not the
-// FP32 pipe, is what it runs into first.
+// The filter is not tested in the inner loop. The count covers every live
+// entity; then, in the same launch, the blocks of a query tile share out its
+// (query, filter slot) pairs and subtract 1 for each DISTINCT id
+// 0 <= f < E of the row whose score beats gold (-1 pads, ids >= E and
+// repeats are skipped). `pair_score` rescores the pair from device memory
+// with the tile's own term functions in the same column order, so it is the
+// same float the tile compared, and the subtraction is exact. The pairs are
+// scored while the block's first tiles are in flight. (Scanning the filter
+// row for every pair that beats gold, inside the tile, costs a scan for
+// about half the pairs at a random gold.)
 //
-// The filter row of a query is tested only for entities that beat gold.
-// It is staged in shared memory when QT*F ints fit in 32 KB, else read from
-// device memory (it is small and stays in L1/L2).
+// What bounds it: at the serving shape (B = 64, E = 491,078, d = 100, l1)
+// the table read is E*d*4 = 196 MB (59 us at 3.35 TB/s) and the arithmetic
+// 2*B*E*d = 6.29e9 fp32 instructions (188 us at 33.5 T instructions/s):
+// the fp32 pipe. At B = 8 the same table read binds (59 us against 23 us).
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "tile_score.cuh"
 
 namespace triple_score {
 
-constexpr int FILT_SMEM_LIMIT = 32 * 1024;
-
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
+template <int MODE, int QT>
+__global__ void __launch_bounds__(BLOCK)
 fused_rank_kernel(const float* __restrict__ q, const float* __restrict__ ent,
                   const float* __restrict__ gold, const int* __restrict__ filt,
-                  int* __restrict__ out, int B, int E, int d, int F, int qt,
-                  int filt_in_smem) {
+                  int* __restrict__ out, int B, int E, int d, int F, int vec) {
+  using T = Micro<QT>;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const Layout L = make_layout(d, MODE);
-  float* e_s = smem;                               // TE * s
-  float* q_s = e_s + (size_t)TE * L.s;             // qt * s
-  float* g_s = q_s + (size_t)qt * L.s;             // qt gold scores
-  float* qq_s = g_s + qt;                          // qt |q|^2 (L2)
-  int* cnt_s = reinterpret_cast<int*>(qq_s + qt);  // qt partial counts
-  int* f_s = cnt_s + qt;                           // qt * F filter ids
-
-  const int q0 = blockIdx.y * qt;
-  const int nq = min(qt, B - q0);
-  stage_rows<MODE>(q_s, q, q0, qt, B, L);
-  for (int j = threadIdx.x; j < qt; j += blockDim.x) {
-    g_s[j] = j < nq ? gold[q0 + j] : 0.0f;
-    cnt_s[j] = 0;
+  const Geo G = make_geo(d, MODE);
+  const Smem S = carve<QT>(smem4, G);
+  const int q0 = blockIdx.y * QT;
+  const int nq = min(QT, B - q0);
+  setup<MODE, QT>(S, q, q0, B, G, vec);
+  if (threadIdx.x >= THREADS) {
+    produce<MODE>(S, ent, E, G, vec);
+    return;
   }
-  if (filt_in_smem) {
-    for (int i = threadIdx.x; i < nq * F; i += blockDim.x) f_s[i] = filt[(size_t)q0 * F + i];
-  }
-  __syncthreads();
-  if (MODE == L2) {
-    for (int j = threadIdx.x; j < qt; j += blockDim.x) qq_s[j] = row_sq(q_s + (size_t)j * L.s, L);
-  }
-  const int* frows = filt_in_smem ? f_s : filt + (size_t)q0 * F;
 
-  const int lane = threadIdx.x & 31;
-  const int el = threadIdx.x % TE;      // this thread's entity in the tile
-  const int grp = threadIdx.x / TE;     // this thread's query group (warp-uniform)
-  const int ntiles = (E + TE - 1) / TE;
+  for (int j = threadIdx.x; j < QT; j += THREADS) {
+    S.cnt[j] = 0;
+    S.qq[j] = MODE == L2 && j < nq ? row_norm(q + (size_t)(q0 + j) * d, d) : 0.0f;
+  }
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int e0 = tile * TE;
-    __syncthreads();  // the previous tile is fully consumed
-    stage_rows<MODE>(e_s, ent, e0, TE, E, L);
-    __syncthreads();
-    const int eid = e0 + el;
-    const bool live = eid < E;
-    const float* er = e_s + (size_t)el * L.s;
-    const float ee = MODE == L2 ? row_sq(er, L) : 0.0f;
-    // queries of group `grp`: grp, grp + GROUPS, ...; QB of them per pass
-    for (int base = grp; base < nq; base += GROUPS * QB) {
-      const float* qrow[QB];
-      float qq[QB];
-      int js[QB];
+  // the filter correction: pair w to block w % gridDim.x, so that every
+  // block of the row takes a few
+  for (int w = blockIdx.x + gridDim.x * threadIdx.x; w < nq * F; w += gridDim.x * THREADS) {
+    const int j = w / F, i = w - j * F;
+    const int* row = filt + (size_t)(q0 + j) * F;
+    const int f = row[i];
+    if (f < 0 || f >= E) continue;
+    bool first = true;
+    for (int k = 0; k < i && first; ++k) first = row[k] != f;
+    if (!first) continue;
+    const float* qr = q + (size_t)(q0 + j) * d;
+    const float s = pair_score<MODE>(qr, ent + (size_t)f * d, G,
+                                     MODE == L2 ? row_norm(qr, d) : 0.0f);
+    if (s > gold[q0 + j]) atomicSub(&out[q0 + j], 1);
+  }
+
+  constexpr int MQ = T::MQ, ME = T::ME;
+  const int qrow = T::qrow0(), erow = T::erow0();
+  int cnt[MQ];
+  float g[MQ];
 #pragma unroll
-      for (int m = 0; m < QB; ++m) {
-        js[m] = base + GROUPS * m;
-        const int jr = js[m] < nq ? js[m] : base;
-        qrow[m] = q_s + (size_t)jr * L.s;
-        qq[m] = MODE == L2 ? qq_s[jr] : 0.0f;
-      }
-      float s[QB];
-      score_rows<MODE>(er, qrow, qq, ee, L, s);
+  for (int m = 0; m < MQ; ++m) {
+    cnt[m] = 0;
+    const int j = qrow + LQ * m;
+    g[m] = j < nq ? gold[q0 + j] : INFINITY;  // a pad query never counts
+  }
+  queries_landed();
+
+  consume<MODE, QT>(S, E, G, [&](int e0, const float (&sc)[MQ][ME]) {
 #pragma unroll
-      for (int m = 0; m < QB; ++m) {
-        const int j = js[m];
-        if (j >= nq) break;  // warp-uniform
-        bool beats = live && s[m] > g_s[j];
-        if (beats) {
-          const int* fr = frows + (size_t)j * F;
-          for (int f = 0; f < F; ++f) {
-            if (fr[f] == eid) { beats = false; break; }
-          }
-        }
-        const unsigned bal = __ballot_sync(0xffffffffu, beats);
-        if (lane == 0 && bal) atomicAdd(&cnt_s[j], __popc(bal));
-      }
+    for (int i = 0; i < ME; ++i) {
+      const bool live = e0 + erow + LE * i < E;
+#pragma unroll
+      for (int m = 0; m < MQ; ++m) cnt[m] += live && sc[m][i] > g[m];
     }
+  });
+
+  // sum over the LE lanes that share a query, then one shared add per query
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int m = 0; m < MQ; ++m) {
+    int v = cnt[m];
+#pragma unroll
+    for (int o = LQ; o < 32; o *= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane < LQ && v) atomicAdd(&S.cnt[qrow + LQ * m], v);
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < nq; j += blockDim.x) {
-    if (cnt_s[j]) atomicAdd(&out[q0 + j], cnt_s[j]);
+  compute_sync();
+  for (int j = threadIdx.x; j < nq; j += THREADS) {
+    if (S.cnt[j]) atomicAdd(&out[q0 + j], S.cnt[j]);
   }
 }
 
-template <int MODE>
+template <int MODE, int QT>
 static int launch(const float* q, const float* ent, const float* gold, const int* filt,
-                  int* out, int B, int E, int d, int F, int device, cudaStream_t stream) {
+                  int* out, int B, int E, int d, int F, int vec, int device,
+                  cudaStream_t stream) {
   static PlanCache cache;
-  auto kernel = fused_rank_kernel<MODE>;
+  auto kernel = fused_rank_kernel<MODE, QT>;
   Plan plan;
-  int rc = cache.get(kernel, device, d, F, &plan, [&](Plan& p) -> int {
-    const Layout L = make_layout(d, MODE);
-    const int limit = max_dynamic_smem(device);
-    p.qt = pick_query_tile(L, 3, 0, limit);
-    if (p.qt == 0) return (int)cudaErrorInvalidValue;
-    p.filt_smem = (size_t)p.qt * F * sizeof(int) <= (size_t)FILT_SMEM_LIMIT &&
-                  tile_smem_bytes(L, p.qt, p.qt * (3 + F)) <= (size_t)limit;
-    p.smem = tile_smem_bytes(L, p.qt, p.qt * (3 + (p.filt_smem ? F : 0)));
-    return 0;
-  });
+  int rc = cache.get(kernel, device, d, smem_bytes(make_geo(d, MODE), QT), &plan);
   if (rc) return rc;
-  kernel<<<persistent_grid(plan, B, E), THREADS, plan.smem, stream>>>(
-      q, ent, gold, filt, out, B, E, d, F, plan.qt, plan.filt_smem);
+  kernel<<<persistent_grid(plan.blocks, B, E, QT), BLOCK, plan.smem, stream>>>(
+      q, ent, gold, filt, out, B, E, d, F, vec);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+static int launch_mode(const float* q, const float* ent, const float* gold, const int* filt,
+                       int* out, int B, int E, int d, int F, int vec, int device,
+                       cudaStream_t s) {
+  switch (pick_query_tile(B, make_geo(d, MODE), max_dynamic_smem(device))) {
+    case 8: return launch<MODE, 8>(q, ent, gold, filt, out, B, E, d, F, vec, device, s);
+    case 16: return launch<MODE, 16>(q, ent, gold, filt, out, B, E, d, F, vec, device, s);
+    case 32: return launch<MODE, 32>(q, ent, gold, filt, out, B, E, d, F, vec, device, s);
+    case 64: return launch<MODE, 64>(q, ent, gold, filt, out, B, E, d, F, vec, device, s);
+    default: return (int)cudaErrorInvalidValue;  // rows too long for shared memory
+  }
 }
 
 }  // namespace triple_score
@@ -147,19 +147,20 @@ extern "C" int triple_score_fused_ranks(const void* q, const void* ent, const vo
                                         int F, int mode, int device, void* stream) {
   using namespace triple_score;
   if (B <= 0 || E <= 0) return 0;
-  if (d <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || F <= 0 || (mode == CL1 && d % 2)) return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto qf = static_cast<const float*>(q);
   auto ef = static_cast<const float*>(ent);
   auto gf = static_cast<const float*>(gold);
   auto fi = static_cast<const int*>(filt);
   auto o = static_cast<int*>(out);
+  const int vec = rows_aligned16(q, ent, d, mode);
   return on_device(device, [&]() -> int {
     switch (mode) {
-      case L1: return launch<L1>(qf, ef, gf, fi, o, B, E, d, F, device, s);
-      case L2: return launch<L2>(qf, ef, gf, fi, o, B, E, d, F, device, s);
-      case DOT: return launch<DOT>(qf, ef, gf, fi, o, B, E, d, F, device, s);
-      case CL1: return launch<CL1>(qf, ef, gf, fi, o, B, E, d, F, device, s);
+      case L1: return launch_mode<L1>(qf, ef, gf, fi, o, B, E, d, F, vec, device, s);
+      case L2: return launch_mode<L2>(qf, ef, gf, fi, o, B, E, d, F, vec, device, s);
+      case DOT: return launch_mode<DOT>(qf, ef, gf, fi, o, B, E, d, F, vec, device, s);
+      case CL1: return launch_mode<CL1>(qf, ef, gf, fi, o, B, E, d, F, vec, device, s);
       default: return (int)cudaErrorInvalidValue;
     }
   });

@@ -4,6 +4,9 @@
 ``fused_ranks`` — filtered rank counts ``out[i] = Σ_e 1[score(q_i, e) > gold_i]``
 over entities not listed in ``filt[i]``, without materializing (B, E)
 (csrc/fused_ranks.cu). Both share the tile math of csrc/tile_score.cuh.
+The count is taken over every entity, and then each distinct filtered id
+that beats gold is subtracted once; the plain version takes the same two
+steps, on the same scores.
 
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU tensor
 it takes the plain PyTorch version beside it (``*_plain``), which repeats
@@ -18,7 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels._nvcc import CudaLibrary, build_all
+from repro_torch.kernels._nvcc import SPLIT_TF32, CudaLibrary, build_all
 
 #: score tile modes: L1/L2 Minkowski (negated distance), plain dot product,
 #: or complex-L1 ("cl1": rows are [re | im] halves, per-component modulus —
@@ -27,7 +30,7 @@ SCORE_MODES = ("l1", "l2", "dot", "cl1")
 _MODE_IDS = {"l1": 0, "l2": 1, "dot": 2, "cl1": 3}
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADERS = (_CSRC / "tile_score.cuh",)
+_HEADERS = (_CSRC / "tile_score.cuh", SPLIT_TF32)
 PAIRWISE_LIB = CudaLibrary("triple_score_pairwise", _CSRC / "pairwise_scores.cu", _HEADERS)
 FUSED_RANKS_LIB = CudaLibrary("triple_score_fused_ranks", _CSRC / "fused_ranks.cu", _HEADERS)
 LIBRARIES = (PAIRWISE_LIB, FUSED_RANKS_LIB)
@@ -155,19 +158,37 @@ def exclusion_mask(filt: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
     return mask[:, :w]
 
 
+def distinct_filter(filt: torch.Tensor, num_entities: int) -> torch.Tensor:
+    """(B, F) int64: each row sorted, with −1 in place of a pad, an id
+    outside ``[0, num_entities)`` and every repeat of an id, so that each
+    id in range that the row lists stands in it once."""
+    f = filt.long()
+    f = torch.where((f >= 0) & (f < num_entities), f, torch.full_like(f, -1))
+    f, _ = f.sort(1)
+    repeat = torch.zeros_like(f, dtype=torch.bool)
+    repeat[:, 1:] = f[:, 1:] == f[:, :-1]
+    return torch.where(repeat, torch.full_like(f, -1), f)
+
+
 def fused_ranks_plain(q: torch.Tensor, ent: torch.Tensor, gold: torch.Tensor,
                       filt: torch.Tensor, mode: str, block_e: int = 2048) -> torch.Tensor:
-    """Plain version of the fused-rank kernel: the same count, streamed
-    over ``block_e``-entity blocks (the JAX package's ``lax.scan`` twin)."""
+    """Plain version of the fused-rank kernel, streamed over ``block_e``-entity
+    blocks (the JAX package's ``lax.scan`` twin), in the kernel's two steps:
+    count every entity that beats gold, then subtract each distinct filtered
+    id that does, read from the same block's scores."""
     q = q.float()
     g = gold.float()[:, None]
     e = ent.shape[0]
+    ids = distinct_filter(filt, e)
     counts = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
     for c0 in range(0, e, block_e):
         c1 = min(c0 + block_e, e)
-        s = tile_scores_plain(q, ent[c0:c1].float(), mode)
-        beats = (s > g) & ~exclusion_mask(filt, c0, c1)
+        beats = tile_scores_plain(q, ent[c0:c1].float(), mode) > g
         counts += beats.sum(1, dtype=torch.int32)
+        rel = ids - c0
+        here = (rel >= 0) & (rel < c1 - c0)
+        filtered = beats.gather(1, torch.where(here, rel, torch.zeros_like(rel))) & here
+        counts -= filtered.sum(1, dtype=torch.int32)
     return counts
 
 

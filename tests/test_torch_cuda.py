@@ -120,6 +120,108 @@ def test_kernels_exact_on_dyadic(cuda_dev, mode):
                        fused_ranks_plain(q, ent, gold, filt, mode))
 
 
+def _messy_filter(g, dev, gi, e, f):
+    """Filter rows with the gold id twice, other repeats, −1 pads and ids at
+    or past E."""
+    b = gi.shape[0]
+    filt = torch.randint(-1, e + 5, (b, f), device=dev, generator=g, dtype=torch.int32)
+    filt[:, 0] = gi.int()
+    if f > 3:
+        filt[:, 1] = gi.int()
+        filt[::2, 2] = filt[::2, 3]
+        filt[1::3, -1] = -1
+        filt[::4, -2] = e
+    return filt
+
+
+def _check_both(q, ent, mode, f, g, exact):
+    """Both kernels against their plain versions on (q, ent): scores within
+    atol 1e-4 / rtol 1e-5 (bit-equal when ``exact``), rank counts up to
+    near-ties (bit-equal when ``exact``), one launch each."""
+    dev = q.device
+    b, e = q.shape[0], ent.shape[0]
+    before = dict(LAUNCHES)
+    s = pairwise_scores(q, ent, mode=mode)
+    p = pairwise_scores_plain(q, ent, mode)
+    if exact:
+        assert torch.equal(s, p)
+    else:
+        torch.testing.assert_close(s, p, atol=1e-4, rtol=1e-5)
+    gi = torch.randint(0, e, (b,), device=dev, generator=g)
+    filt = _messy_filter(g, dev, gi, e, f)
+    gold = p[torch.arange(b, device=dev), gi]
+    got = fused_ranks(q, ent, gold, filt, mode=mode)
+    want = fused_ranks_plain(q, ent, gold, filt, mode)
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert _near_tie_ok(got, want, p, gold)
+    assert LAUNCHES["pairwise_scores"] == before["pairwise_scores"] + 1
+    assert LAUNCHES["fused_ranks"] == before["fused_ranks"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot", "cl1"])
+@pytest.mark.parametrize("b", [1, 8, 9, 63, 64, 65, 128])
+def test_kernels_across_query_tiles(cuda_dev, b, mode):
+    """Every query-tile choice (8, 16, 32, 64 rows, and two grid rows past
+    64) on a table that ends in a ragged entity tile."""
+    g = torch.Generator(device=cuda_dev).manual_seed(b)
+    q = torch.randn(b, 100, device=cuda_dev, generator=g)
+    ent = torch.randn(3001, 100, device=cuda_dev, generator=g)
+    _check_both(q, ent, mode, 6, g, exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,d", [("l1", 7), ("l2", 7), ("dot", 7), ("l1", 10), ("cl1", 10),
+                                    ("l1", 102), ("cl1", 102), ("l2", 102), ("dot", 300),
+                                    ("l1", 300), ("cl1", 300), ("l2", 257)])
+@pytest.mark.parametrize("b", [5, 64])
+def test_kernels_on_unaligned_and_chunked_rows(cuda_dev, mode, d, b):
+    """Rows that are not 16-byte aligned (d % 4 != 0, cl1 halves of odd or
+    unaligned width) take the 4-byte copies; rows past one stage's columns
+    (d 257, 300) are scored in several chunks."""
+    g = torch.Generator(device=cuda_dev).manual_seed(b * d)
+    q = torch.randn(b, d, device=cuda_dev, generator=g)
+    ent = torch.randn(1500, d, device=cuda_dev, generator=g)
+    _check_both(q, ent, mode, 4, g, exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot", "cl1"])
+@pytest.mark.parametrize("d", [7, 100, 102])
+def test_kernels_on_unaligned_chunk_views(cuda_dev, mode, d):
+    """A chunk view ``table[c0:c1]`` as the top-k path passes it, whose
+    first row is not 16-byte aligned where d % 4 != 0."""
+    if mode == "cl1" and d % 2:
+        d *= 2  # an even width with an odd half (d / 2 = 7)
+    g = torch.Generator(device=cuda_dev).manual_seed(d)
+    q = torch.randn(64, d, device=cuda_dev, generator=g)
+    table = torch.randn(2000, d, device=cuda_dev, generator=g)
+    view = table[3:1700]
+    assert view.is_contiguous()
+    if d % 4:
+        assert view.data_ptr() % 16 != 0
+    _check_both(q, view, mode, 5, g, exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot"])
+@pytest.mark.parametrize("b,f", [(1, 5), (8, 2000), (64, 9), (65, 33), (128, 2000)])
+def test_fused_ranks_bit_equal_on_dyadic_ties_and_messy_filters(cuda_dev, mode, b, f):
+    """Dyadic tables, where every sum is exact: many exact ties with gold,
+    filter rows with repeats, pads, ids past E and up to 2,000 slots (the
+    filter is never staged in shared memory): scores and rank counts
+    bit-equal to the plain versions."""
+    rng = np.random.default_rng(b + f)
+    q = torch.from_numpy(_dyadic(rng, (b, 32))).to(cuda_dev)
+    ent = torch.from_numpy(_dyadic(rng, (4100, 32))).to(cuda_dev)
+    ent[2000:2500] = ent[:500]  # exact ties
+    ent[3000:3010] = q[:1].expand(10, -1)  # exact ties with the query itself
+    g = torch.Generator(device=cuda_dev).manual_seed(b * f)
+    _check_both(q, ent, mode, f, g, exact=True)
+
+
 @pytest.mark.cuda
 def test_tier_on_the_card_equals_the_cpu_tier(cuda_dev):
     """Mixed rank/top-k traffic through the tier on the card (kernels) and

@@ -29,7 +29,7 @@ from repro_torch.kernels.triple_score import (
     pairwise_scores_plain,
     pairwise_scores_ref,
 )
-from repro_torch.kernels.triple_score.ops import exclusion_mask
+from repro_torch.kernels.triple_score.ops import distinct_filter, exclusion_mask
 
 MODES = ["l1", "l2", "dot", "cl1"]
 #: (B, E, d, F): ragged B and E against every block size in play
@@ -146,6 +146,55 @@ def test_fused_ranks_excludes_filter_and_counts_ties_as_not_beating():
     filt = torch.tensor([[5, -1, -1, -1], [5, 1, 3, 99]], dtype=torch.int32)
     assert fused_ranks(q, ent, gold, filt, mode="l1").tolist() == [5, 3]
     assert fused_ranks(q, ent, gold, filt[:, :0], mode="l1").tolist() == [5, 5]
+
+
+def _messy_filter(rng, gold_idx, e, f):
+    """Filter rows as callers send them: the gold id, repeats of it and of
+    other ids, −1 pads, and ids at or past E."""
+    b = len(gold_idx)
+    filt = rng.integers(-1, e + 5, (b, f)).astype(np.int32)
+    filt[:, 0] = gold_idx
+    filt[:, 1] = gold_idx  # the gold id twice
+    filt[::2, 2] = filt[::2, 3]  # another repeat
+    filt[1::3, -1] = -1
+    filt[::4, -2] = e  # one past the last entity
+    return filt
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("exact", [True, False], ids=["dyadic", "continuous"])
+def test_fused_ranks_count_then_subtract_matches_pallas_on_messy_filters(exact, mode):
+    """The plain version counts every entity that beats gold and subtracts
+    each distinct filtered id that does: held against the JAX kernel, which
+    tests the filter in its tile, on filter rows with repeats, pads and ids
+    out of range."""
+    b, e, d, f = 12, 200, 16, 9
+    rng = np.random.default_rng(17)
+    q, ent, _, _ = _inputs(b, e, d, 1, exact=exact, seed=5)
+    ent[100:150] = ent[:50]  # exact ties with other entities
+    gold_idx = rng.integers(0, e, b)
+    filt = _messy_filter(rng, gold_idx, e, f)
+    gold, scores = _gold(q, ent, gold_idx, mode)
+    want = np.asarray(jax_fused_ranks(jnp.asarray(q), jnp.asarray(ent), jnp.asarray(gold),
+                                      jnp.asarray(filt), mode=mode, block_e=64, impl="pallas",
+                                      interpret=True))
+    got = fused_ranks(_t(q), _t(ent), _t(gold), _t(filt), mode=mode, block_e=48).numpy()
+    if exact and mode != "cl1":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert near_tie_ok(got, want, scores, gold)
+    ref = fused_ranks_ref(_t(q), _t(ent), _t(gold), _t(filt), mode=mode).numpy()
+    if exact and mode != "cl1":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert near_tie_ok(got, ref, scores, gold)
+
+
+def test_distinct_filter_keeps_each_id_in_range_once():
+    filt = torch.tensor([[3, -1, 3, 7, 12, 0], [5, 5, 5, -4, 11, 2]], dtype=torch.int32)
+    got = distinct_filter(filt, 12)
+    assert got.tolist() == [[-1, -1, 0, 3, -1, 7], [-1, 2, 5, -1, -1, 11]]
+    assert distinct_filter(filt[:, :0], 12).shape == (2, 0)
 
 
 def test_exclusion_mask_matches_membership():
