@@ -5,10 +5,11 @@ traffic at full width through ``repro_torch.serving.KGEServingTier``, trains
 one full-width epoch through ``repro_torch.kge.trainer.KGETrainer`` and
 scores it, runs one full-width PPAT handshake with its KGEmb update,
 retrain and backtrack through ``repro_torch.core``, serves qwen3-0.6b and
-mamba2-2.7b at full width through ``repro_torch.serving.ServingEngine``, and
-times the kernels.
+mamba2-2.7b at full width through ``repro_torch.serving.ServingEngine``,
+times the kernels, and runs two ticks of the federation scheduler over Yago
+and Dbpedia with a serving tier attached.
 
-    python3 chip_smoke.py            # one CUDA card; about five minutes on an H100
+    python3 chip_smoke.py            # one CUDA card; about three minutes on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
@@ -129,7 +130,29 @@ Phases (every failed check ends the run with a non-zero exit):
    ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
    timed only) with their bounds (split TF32 beside fp32 pipes), and of
    both at the serve script's batch 4 x 2,048 (outputs held against the
-   plain versions first).
+   plain versions first);
+15. the federation at full width: ``FederationScheduler`` on ``cuda:0`` over
+   Dbpedia (phase 6's store) and Yago (phase 9's, with valid and test
+   sampled the same way) with phase 9's 123,853 aligned entities as an
+   explicit registry; d = 100, TransE, the scheduler's defaults (margin 2,
+   batch 100, ``PPATConfig()``, average aggregation, procrustes, virtual
+   extension), Hit@10 backtrack over 200 valid triples, one epoch of
+   initial training and one retrain epoch. ``KGEServingTier.for_owner``
+   serves Dbpedia; two ticks with a wave of 32 rank and 4 top-k requests
+   drained between them and after. Checks: events in plan order, every
+   decision ``after > before``, tables bit-equal to the best snapshot after
+   each tick, each handshake's epsilon finite and equal to its accountant,
+   the lifetime epsilon at least each, tier versions 1 + Dbpedia's accepts,
+   every request served, and the counters (zeroed just before the phase)
+   of the epoch and rank kernels equal to what the plan implies: one
+   launch per epoch, two per 128 scored triples. The round's host clock
+   with each stage's share (each stage call synchronised), and a
+   ``torch.profiler`` window (device activity only) of the first tick, the
+   one whose plan is handshakes: the device's idle share.
+   Then the scheduler at a small universe (three owners at scale 1/500,
+   d = 16, 12 PPAT rounds, two ticks) on the card and on the CPU under
+   ``REPRO_TRAIN_IMPL=fused`` from the same CPU draws: equal events,
+   bit-equal epsilon, tables within 1e-5.
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -141,9 +164,9 @@ launch lasts tens of ms, and its ``ms`` is the device time of one (as
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6, 9, 12 and 13 at a tiny size (the LM cards
-reduced) on the CPU with the plain versions (no kernels, no timings) and
-also exits non-zero.
+``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15 at a tiny size (the LM
+cards reduced) on the CPU with the plain versions (no kernels, no timings)
+and also exits non-zero.
 """
 from __future__ import annotations
 
@@ -221,6 +244,13 @@ LM_REHEARSE_PLAN = (2, 4, 8, 90, 256, 6)
 SERVE_GEN = 32           # tokens per sequence of the ``launch/serve.py`` run
 SERVE_BATCH_LM = 4       # sequences per ``launch/serve.py`` batch
 LM_TIE_TOL = 1e-3        # near-tie rule for greedy tokens: logits within this
+FED_TICKS = 2            # scheduler ticks of phase 15
+FED_MAX_TEST = 200       # the scheduler's ``score_max_test``: valid triples per Hit@10
+FED_WAVE = (32, 4)       # rank and top-k requests per wave between the ticks
+FED_SMALL_OWNERS = ("Dbpedia", "Yago", "Geonames")  # card-vs-CPU universe
+FED_SMALL_DIM = 16
+FED_SMALL_ROUNDS = 12
+FED_TABLE_ATOL = 1e-5    # phase 5's bound for 64 steps
 
 
 class SmokeFailure(RuntimeError):
@@ -664,10 +694,23 @@ def topk_host_split(torch, request, card):
     return {"wall_ms": wall_ms, "cpu_ms": cpu_ms, "top": top}
 
 
+def device_us_by_name(prof):
+    """Device microseconds by kernel name over a finished torch.profiler
+    window, summed from the raw trace: ``prof.events()`` first builds a
+    Python tree of every event, seconds for a window of many operators."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == DeviceType.CUDA and not getattr(
+                evt, "is_hidden_event", lambda: False)():
+            out[evt.name()] = out.get(evt.name(), 0.0) + evt.duration_ns() / 1e3
+    return out
+
+
 def profile_serving(torch, np, tier, m, seed, card):
     """Device time by kernel and the device's idle share while the tier
     drains a mixed burst (torch.profiler, CUDA activity)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     rng = np.random.default_rng(seed + 99)
@@ -684,10 +727,7 @@ def profile_serving(torch, np, tier, m, seed, card):
         tier.run_until_drained()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    by_name = device_us_by_name(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
@@ -794,13 +834,13 @@ def step_vs_plain(torch, np, models, sops, dev, seed, e, r):
 
 
 # ------------------------------------------------------------ phase 6
-def make_kg(np, seed, e, r, known):
+def make_kg(np, seed, e, r, known, name="dbpedia-uniform"):
     """The training KG: the known store as the training split, valid and
     test ``MAX_TEST`` triples each sampled from it."""
     from repro_torch.kge.data import KG
 
     rng = np.random.default_rng(seed + 13)
-    kg = KG("dbpedia-uniform", e, r, known, np.arange(e))
+    kg = KG(name, e, r, known, np.arange(e))
     kg.train = known
     n = min(MAX_TEST, len(known))
     kg.valid = known[rng.choice(len(known), n, replace=False)]
@@ -1022,7 +1062,6 @@ def profile_training(torch, engine, trainer, card):
     engine (``train_epochs_device`` on copies of the trainer's tables: the
     padding, the draws, the batches, one epoch-kernel launch, the norm
     projection, the strip), under torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     dev = trainer.params["ent"].device
@@ -1042,10 +1081,7 @@ def profile_training(torch, engine, trainer, card):
         float(losses[-1])
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    by_name = device_us_by_name(prof)
     busy = sum(by_name.values())
     res = {"epochs": 1, "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": None if busy == 0 else 1 - busy / wall_us,
@@ -1392,7 +1428,6 @@ def csls_timings(torch, ck, al, x, y, card):
 def profile_handshake(torch, np, host, ctx, cfg, seed, card):
     """Device time by kernel and the device's idle share over a second,
     whole handshake from the host's current tables (torch.profiler)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     client, client_kg, idx_c, idx_h, scores = ctx
@@ -1404,10 +1439,7 @@ def profile_handshake(torch, np, host, ctx, cfg, seed, card):
                        scores)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    by_name = device_us_by_name(prof)
     busy = sum(by_name.values())
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": None if busy == 0 else 1 - busy / wall_us,
@@ -1563,22 +1595,20 @@ def near_tie_match(got, want, logits, tol):
     return 0
 
 
-def profile_window(torch, fn):
+def profile_window(torch, fn, cpu=True):
     """(wall ms, device busy ms, idle share, top kernels) of ``fn`` under
-    torch.profiler."""
-    from torch.autograd import DeviceType
+    torch.profiler; ``cpu=False`` traces the device only, which keeps the
+    profiler's own host cost off a window of many small operators."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    by_name = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + evt.time_range.elapsed_us()
+    by_name = device_us_by_name(prof)
     busy = sum(by_name.values())
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": None if busy == 0 else 1 - busy / wall_us,
@@ -1796,6 +1826,292 @@ def lm_timings(torch, fa, ks, dev, card):
     return out
 
 
+# ------------------------------------------------------------ phase 15
+class StageClock:
+    """Host-clock seconds of each stage of a federation round, each call
+    ended (and begun) by a synchronise: wraps the functions that
+    ``core/federation.py`` calls for each stage, and restores them on exit."""
+
+    def __init__(self, torch, fed_mod, sched, dev):
+        self.torch, self.fed_mod, self.sched, self.dev = torch, fed_mod, sched, dev
+        self.secs, self.calls, self.ppat = {}, {}, []
+        self._in_plan = False
+        self._saved = []
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize(self.dev)
+
+    def _timed(self, stage, fn, keep=None):
+        def wrapper(*a, **kw):
+            self._sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self._sync()
+            name = stage() if callable(stage) else stage
+            self.secs[name] = self.secs.get(name, 0.0) + time.perf_counter() - t0
+            self.calls[name] = self.calls.get(name, 0) + 1
+            if keep is not None:
+                keep.append(out)
+            return out
+        return wrapper
+
+    def _patch(self, owner, attr, wrapper):
+        self._saved.append((owner, attr, owner.__dict__.get(attr, None), attr in owner.__dict__))
+        setattr(owner, attr, wrapper)
+
+    def __enter__(self):
+        m, tr = self.fed_mod, self.fed_mod.KGETrainer
+        self._patch(m, "train_ppat", self._timed("ppat", m.train_ppat, keep=self.ppat))
+        self._patch(m, "procrustes", self._timed("procrustes_update", m.procrustes))
+        self._patch(m, "kgemb_update", self._timed("procrustes_update", m.kgemb_update))
+        self._patch(m, "virtual_extension", self._timed("virtual_extension",
+                                                        m.virtual_extension))
+        self._patch(tr, "train_epochs", self._timed("retrain", tr.train_epochs))
+        self._patch(tr, "snapshot", self._timed(
+            lambda: "plan_view_copies" if self._in_plan else "accept_or_restore", tr.snapshot))
+        self._patch(tr, "restore", self._timed("accept_or_restore", tr.restore))
+        self._patch(self.sched, "score_fn", self._timed("backtrack_score", self.sched.score_fn))
+        plan = self.sched.plan_tick
+
+        def plan_tick(**kw):
+            self._in_plan = True
+            try:
+                return plan(**kw)
+            finally:
+                self._in_plan = False
+        self._patch(self.sched, "plan_tick", plan_tick)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, old, had in reversed(self._saved):
+            if had:
+                setattr(owner, attr, old)
+            else:
+                delattr(owner, attr)
+        return False
+
+
+def fed_wave(tier, kg, rng, n_rank, n_topk):
+    """One wave of rank and top-k requests of 1-16 rows, drained."""
+    reqs = []
+    for kind in ["rank"] * n_rank + ["topk"] * n_topk:
+        q = kg.train[rng.integers(0, len(kg.train), int(rng.integers(1, 17)))]
+        if kind == "rank":
+            reqs.append(tier.submit_rank(q[:, 0], q[:, 1], q[:, 2]))
+        else:
+            reqs.append(tier.submit_topk(q[:, 0], q[:, 1], k=10))
+    tier.run_until_drained()
+    return reqs
+
+
+def federation_path(torch, np, ops, sops, serving, dev, args, card, sizes):
+    """Phase 15: Alg. 1 through ``FederationScheduler`` over Yago and
+    Dbpedia at full width, with a serving tier attached to Dbpedia."""
+    from repro_torch.core import federation as fed_mod
+    from repro_torch.core.alignment import AlignmentRegistry
+    from repro_torch.core.privacy import MomentsAccountant
+
+    (e_d, r_d, n_d), (e_y, r_y, n_y), n_al = sizes
+    t0 = time.perf_counter()
+    kgs = {"Dbpedia": make_kg(np, args.seed, e_d, r_d, draw_known(np, args.seed, e_d, r_d, n_d)),
+           "Yago": make_kg(np, args.seed + 21, e_y, r_y,
+                           draw_known(np, args.seed + 21, e_y, r_y, n_y), "yago-uniform")}
+    rng = np.random.default_rng(args.seed + 23)  # phase 9's alignment
+    reg = AlignmentRegistry()
+    reg.add_entities("Yago", "Dbpedia", np.sort(rng.choice(e_y, n_al, replace=False)),
+                     rng.choice(e_d, n_al, replace=False))
+    sched = fed_mod.FederationScheduler(
+        kgs, dim=DIM, registry=reg, score_metric="hit10", score_max_test=FED_MAX_TEST,
+        update_epochs=1, seed=args.seed, device=dev)
+    setup_s = time.perf_counter() - t0
+    counters = (ops.LAUNCHES, sops.LAUNCHES)
+    fed_launches = {}
+
+    def federate(fn):
+        """``fn()`` with the kernels it launches added to ``fed_launches``."""
+        before = {k: v for c in counters for k, v in c.items()}
+        out = fn()
+        for c in counters:
+            for k, v in c.items():
+                fed_launches[k] = fed_launches.get(k, 0) + v - before[k]
+        return out
+
+    ops.reset_launches()
+    sops.reset_launches()
+    t0 = time.perf_counter()
+    init = federate(lambda: sched.initial_training(1))
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tier = serving.KGEServingTier.for_owner(sched, "Dbpedia", device=dev,
+                                            max_batch=SERVE_BATCH)
+    tier_s = time.perf_counter() - t0
+    check(tier.version == 1, f"the attached tier starts at version {tier.version}, not 1")
+
+    plans, reqs, ticks, prof = [], [], [], None
+    plan_tick = sched.plan_tick
+
+    def recorded_plan(**kw):
+        plan = plan_tick(**kw)
+        plans.append([(e.host, e.kind, e.client) for e in plan])
+        return plan
+
+    sched.plan_tick = recorded_plan
+    wave_rng = np.random.default_rng(args.seed + 43)
+    def one_tick():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        federate(lambda: sched.run(max_ticks=1))
+        ticks.append(time.perf_counter() - t0)
+
+    with StageClock(torch, fed_mod, sched, dev) as clock:
+        for tick in range(FED_TICKS):
+            if tick:
+                reqs += fed_wave(tier, kgs["Dbpedia"], wave_rng, *FED_WAVE)
+            if tick == 0 and dev.type == "cuda":  # the first tick: its plan is handshakes
+                prof = profile_window(torch, one_tick, cpu=False)
+            else:
+                one_tick()
+            for n, tr in sched.trainers.items():
+                snap = sched.best_snapshot[n]
+                check(all(torch.equal(tr.params[k], snap[k]) for k in snap),
+                      f"tick {sched._tick}: {n}'s tables are not its best snapshot, bit for bit")
+        reqs += fed_wave(tier, kgs["Dbpedia"], wave_rng, *FED_WAVE)
+    sched.plan_tick = plan_tick
+
+    events = [ev for ev in sched.events if ev.kind != "init"]
+    by_tick = [[(ev.host, ev.kind, ev.client) for ev in events if ev.tick == t]
+               for t in range(1, sched._tick + 1)]
+    check(by_tick == plans, f"events {by_tick} are not in plan order {plans}")
+    check(all(ev.fault is None and ev.accepted == (ev.score_after > ev.score_before)
+              for ev in events), "a decision is not after > before")
+    handshakes = [ev for ev in events if ev.kind == "ppat"]
+    check(len(clock.ppat) == len(handshakes), "a handshake without its PPAT run")
+    for ev, (_, ppat_host, hist) in zip(handshakes, clock.ppat):
+        acct = MomentsAccountant(sched.ppat_cfg.lam, sched.ppat_cfg.delta)
+        acct.update(hist["n0"].ravel(), hist["n1"].ravel())
+        check(np.isfinite(ev.epsilon) and ev.epsilon == ppat_host.accountant.epsilon()
+              == acct.epsilon(), f"handshake {ev.client}->{ev.host}: epsilon {ev.epsilon} is "
+              f"not finite and equal to its accountant ({acct.epsilon()})")
+    life = sched.accountant.epsilon()
+    check(all(life >= ev.epsilon for ev in handshakes),
+          f"lifetime epsilon {life} below a handshake's")
+    accepts = sum(ev.accepted for ev in events if ev.host == "Dbpedia")
+    check(tier.version == 1 + accepts and tier.stats["publish_errors"] == 0,
+          f"tier version {tier.version} != 1 + Dbpedia's {accepts} accepts")
+    s = tier.stats
+    check(s["served"] == s["submitted"] == len(reqs) and all(r.state == "served" for r in reqs),
+          f"requests not all served: {s}")
+    # the plan's launches: one epoch-kernel launch per train_epochs epoch and
+    # two rank launches (tail, head) per 128-triple chunk of each Hit@10 score
+    n_train = len(sched.trainers) + len(events)
+    per_score = 2 * -(-FED_MAX_TEST // 128)
+    want = {"sparse_sgd_step": n_train, "fused_ranks": per_score * n_train, "pairwise_scores": 0}
+    if dev.type == "cuda":
+        check({k: fed_launches.get(k, 0) for k in want} == want,
+              f"the federation launched {fed_launches}, the plan implies {want}")
+    tier_launches = {k: v for c in counters for k, v in c.items()}
+    tier_launches = {k: v - fed_launches.get(k, 0) for k, v in tier_launches.items()}
+    if dev.type == "cuda":
+        check(tier_launches["fused_ranks"] > 0 and tier_launches["pairwise_scores"] > 0,
+              f"the tier's requests launched {tier_launches}")
+    round_s = sum(ticks)
+    stages = dict(clock.secs)
+    stages["other"] = round_s - sum(v for k, v in stages.items())
+    out = {"setup_s": setup_s, "init_s": init_s, "tier_build_s": tier_s, "tick_s": ticks,
+           "round_s": round_s, "stage_s": stages, "stage_calls": clock.calls,
+           "events": [(ev.tick, ev.host, ev.client, ev.kind, ev.accepted, ev.score_before,
+                       ev.score_after, ev.epsilon, ev.seconds) for ev in events],
+           "init_scores": init, "lifetime_epsilon": life, "tier_versions": tier.version,
+           "requests": len(reqs), "launches": {k: fed_launches.get(k, 0) + tier_launches[k]
+                                               for k in tier_launches},
+           "federation_launches": fed_launches, "tier_launches": tier_launches,
+           "profile": prof}
+    log(f"federation: Dbpedia E={e_d} R={r_d} triples={n_d}, Yago E={e_y} R={r_y} "
+        f"triples={n_y}, {n_al} aligned, d={DIM}, transe, PPAT {sched.ppat_cfg.steps} rounds, "
+        f"Hit@10 backtrack over {FED_MAX_TEST} valid triples, on {dev}; set-up {setup_s:.2f}s, "
+        f"initial training (1 epoch each) {init_s:.2f}s {init}, tier built {tier_s:.2f}s")
+    for ev in events:
+        log(f"federation: tick {ev.tick} {ev.kind} {ev.client}->{ev.host}: Hit@10 "
+            f"{ev.score_before:.4f} -> {ev.score_after:.4f} "
+            f"{'accepted' if ev.accepted else 'restored'}, epsilon {ev.epsilon:.6f}, "
+            f"{ev.seconds:.3f}s")
+    log(f"federation: {len(events)} entries in {FED_TICKS} ticks, {round_s:.3f}s host clock "
+        f"(ticks {', '.join(f'{t:.3f}' for t in ticks)}); lifetime epsilon {life:.6f}; tier "
+        f"version {tier.version}, {len(reqs)} requests served; launches: federation "
+        f"{fed_launches} (= the plan's {want}), tier {tier_launches}")
+    log("federation stages (host clock, s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f"; {card}")
+    if prof is not None:
+        log(f"profile federation tick 1: {prof['wall_ms']:.1f} ms wall (profiled), device busy "
+            f"{prof['device_busy_ms']:.1f} ms, idle share "
+            + ("not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}")
+            + f"; {card}")
+        for name, ms in prof["top"]:
+            log(f"profile federation tick 1:   {ms:10.3f} ms  {name}")
+    return out
+
+
+def fed_card_vs_cpu(torch, np, dev, seed):
+    """The scheduler at a small universe on the card and on the CPU, both
+    under ``REPRO_TRAIN_IMPL=fused``, each from its own ``GeneratorDraws``
+    with the same seed (the same CPU draws in the same order): equal
+    events, bit-equal epsilon, tables within ``FED_TABLE_ATOL``."""
+    import os
+
+    from repro_torch.core.federation import FederationScheduler, GeneratorDraws
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.data import synthesize_universe
+    from repro_torch.serving import KGEServingTier
+
+    uni = synthesize_universe(seed=1, scale=1 / 500)
+    kgs = {n: uni[n] for n in FED_SMALL_OWNERS}
+    cfg = PPATConfig(steps=FED_SMALL_ROUNDS, seed=seed)
+    runs = []
+    old = os.environ.get("REPRO_TRAIN_IMPL")
+    os.environ["REPRO_TRAIN_IMPL"] = "fused"
+    try:
+        for where in (dev, torch.device("cpu")):
+            s = FederationScheduler(kgs, dim=FED_SMALL_DIM, ppat_cfg=cfg, local_epochs=2,
+                                    update_epochs=1, seed=seed, device=where,
+                                    draws=GeneratorDraws(seed + 47, cfg, FED_SMALL_DIM))
+            start = torch.Generator().manual_seed(seed + 53)
+            for tr in s.trainers.values():  # the same start tables on both
+                tr.params = {k: (torch.rand(v.shape, generator=start) - 0.5).to(where)
+                             for k, v in tr.params.items()}
+            s.initial_training()
+            tier = KGEServingTier.for_owner(s, FED_SMALL_OWNERS[0], device=where)
+            s.run(max_ticks=2)
+            runs.append((s, tier.version))
+    finally:
+        if old is None:
+            del os.environ["REPRO_TRAIN_IMPL"]
+        else:
+            os.environ["REPRO_TRAIN_IMPL"] = old
+    (a, version), (b, _) = runs
+    accepts = sum(e.accepted for e in a.events if e.host == FED_SMALL_OWNERS[0]
+                  and e.kind != "init")
+    check(accepts > 0 and version == 1 + accepts,
+          f"small federation: tier version {version} for {accepts} accepts (want some)")
+    keys = ("tick", "host", "client", "kind", "accepted", "fault", "owner_clock", "view_version")
+    ev_a = [tuple(getattr(e, k) for k in keys) for e in a.events]
+    ev_b = [tuple(getattr(e, k) for k in keys) for e in b.events]
+    check(ev_a == ev_b, f"card and CPU schedulers differ: {ev_a} vs {ev_b}")
+    check([repr(e.epsilon) for e in a.events] == [repr(e.epsilon) for e in b.events]
+          and a.accountant.epsilon() == b.accountant.epsilon(),
+          "epsilon differs card vs CPU")
+    err = max(max_err(a.trainers[n].params[k].cpu(), b.trainers[n].params[k])
+              for n in kgs for k in a.trainers[n].params)
+    check(err <= FED_TABLE_ATOL, f"tables differ card vs CPU by {err} > {FED_TABLE_ATOL}")
+    log(f"check federation on {dev} vs the CPU ({', '.join(FED_SMALL_OWNERS)} at scale 1/500, "
+        f"d={FED_SMALL_DIM}, {FED_SMALL_ROUNDS} PPAT rounds, 2 ticks, fused step, the same "
+        f"draws): {len(ev_a)} events equal ({accepts} accepts by {FED_SMALL_OWNERS[0]}, its "
+        f"tier at version {version}), epsilon bit-equal, tables max|err|={err:.3g} "
+        f"(atol {FED_TABLE_ATOL})")
+    return err
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1844,6 +2160,8 @@ def main(argv=None) -> int:
         for arch, counter in (("qwen3-0.6b", (fa, "flash_attention")),
                               ("mamba2-2.7b", (ks, "ssd_chunks"))):
             lm_serve(torch, np, arch, dev, args, "cpu", counter, LM_REHEARSE_PLAN)
+        federation_path(torch, np, ops, sops, serving, dev, args, "cpu",
+                        ((4_000, 50, 12_000), (3_000, YAGO["relations"], 12_000), 1_000))
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -1911,11 +2229,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     times.update(lm_timings(torch, fa, ks, dev, card))
 
+    t0 = time.perf_counter()
+    fed = federation_path(torch, np, ops, sops, serving, dev, args, card,
+                          ((DBPEDIA["entities"], DBPEDIA["relations"], DBPEDIA["triples"]),
+                           (YAGO["entities"], YAGO["relations"], YAGO["triples"]), ALIGNED))
+    fed["card_vs_cpu_table_err"] = fed_card_vs_cpu(torch, np, dev, args.seed)
+    fed["phase_s"] = time.perf_counter() - t0
+    log(f"federation: phase 15 took {fed['phase_s']:.1f}s")
+    torch.cuda.empty_cache()
+
     # each kernel's launches over the main paths that run it: serving (phase
-    # 3), training (phase 6), the handshake (phase 9) and LM serving (phase 12)
+    # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12)
+    # and the federation with its attached tier (phase 15)
     lm_launches = {**lm["qwen3-0.6b"]["launches"], **lm["mamba2-2.7b"]["launches"]}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
                 + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
+                + fed["launches"].get(name, 0)
                 for name in KERNELS}
     for name in ("flash_attention", "ssd_chunks"):
         check(launches[name] > 0, f"the LM serving path never launched {name}")
@@ -1934,7 +2263,8 @@ def main(argv=None) -> int:
         })
     result = {"card": card, "build_s": build_s, "sass": sass, "check_max_abs_err": worst,
               "serve": res,
-              "train": train, "handshake": hs, "lm": lm, "timings": times, "kernels": kernels,
+              "train": train, "handshake": hs, "lm": lm, "federation": fed, "timings": times,
+              "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     try:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

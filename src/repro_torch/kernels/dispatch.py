@@ -10,6 +10,16 @@ a run never carries on quietly on the CPU. The serving knobs keep the JAX
 package's environment variables (``REPRO_SERVE_IMPL``,
 ``REPRO_SERVE_REPLICAS``, ``REPRO_SERVE_FAULTS``), and the training step
 keeps ``REPRO_TRAIN_IMPL`` (``resolve_train_impl``).
+
+The federation knobs keep the JAX package's ``REPRO_TICK_*`` variables,
+but the port has only the serial tick engine (the JAX package's
+``reference``) and the lockstep ``barrier`` discipline. So ``None``/``auto``
+resolve to those two: the port's default engine is the serial one, where
+the JAX package's default is its batched engine, which that package
+documents as bit-identical to the serial one. Everything not ported —
+``batched`` ticks, ``stream`` scheduling, a tick placement or residency,
+an adversary — raises ``NotImplementedError`` naming its ``ROADMAP.md``
+item; nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -52,20 +62,24 @@ def cuda_devices() -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def _fault_spec(spec, env: str):
+    """A fault layer's plan: an already-built object passes through, ``None``
+    consults ``env``, and off-values resolve to ``None``."""
+    if spec is not None and not isinstance(spec, str):
+        return spec
+    if spec is None:
+        spec = os.environ.get(env, "").strip() or None
+    if spec is None or spec.strip().lower() in _FALSY + ("", "none"):
+        return None
+    return spec
+
+
 def resolve_serve_faults(spec=None):
     """The serving-tier fault-injection layer: ``None`` (off, the default)
     or a plan description the tier hands to ``ServeFaultPlan.parse``. An
     already-built plan passes through; ``None`` consults
     ``REPRO_SERVE_FAULTS``; off-values resolve to ``None``."""
-    if spec is not None and not isinstance(spec, str):
-        return spec
-    if spec is None:
-        spec = os.environ.get("REPRO_SERVE_FAULTS", "").strip() or None
-    if spec is None:
-        return None
-    if spec.strip().lower() in _FALSY + ("", "none"):
-        return None
-    return spec
+    return _fault_spec(spec, "REPRO_SERVE_FAULTS")
 
 
 def resolve_serve_impl(impl: Optional[str] = None) -> str:
@@ -131,3 +145,67 @@ def resolve_train_impl(impl: Optional[str] = None, family: str = "transe",
     if impl == "fused" and family not in SPARSE_KERNEL_FAMILIES:
         impl = "sparse"  # the kernel does not cover this family's score math
     return impl
+
+
+#: where each federation layer the port lacks is queued (``ROADMAP.md``)
+_TICK_ENGINE_ITEM = "ROADMAP.md Queue 1 item 3 (streaming and the batched tick engine)"
+_ADVERSARY_ITEM = "ROADMAP.md Queue 1 item 2 (the adversary, attacks and defenses)"
+
+
+def _off(value) -> bool:
+    return value is None or str(value).strip().lower() in _FALSY + ("", "none", "auto")
+
+
+def resolve_tick_impl(impl: Optional[str] = None) -> str:
+    """The federation tick engine: always ``reference``, the serial
+    per-owner loop. ``REPRO_TICK_IMPL`` overrides; ``batched`` raises
+    (not ported)."""
+    if impl is None:
+        impl = os.environ.get("REPRO_TICK_IMPL", "").strip().lower() or None
+    if impl is None or impl == "auto":
+        return "reference"
+    if impl == "batched":
+        raise NotImplementedError(
+            f"tick_impl='batched' is not ported yet: {_TICK_ENGINE_ITEM}")
+    if impl != "reference":
+        raise ValueError(f"unknown tick impl {impl!r} (batched|reference)")
+    return impl
+
+
+def resolve_tick_sync(sync: Optional[str] = None) -> str:
+    """The scheduling discipline: always ``barrier``, lockstep ticks.
+    ``REPRO_TICK_SYNC`` overrides; ``stream``/``streamed`` raise (not
+    ported)."""
+    if sync is None:
+        sync = os.environ.get("REPRO_TICK_SYNC", "").strip().lower() or None
+    if sync is None or sync == "auto":
+        return "barrier"
+    if sync in ("stream", "streamed"):
+        raise NotImplementedError(
+            f"tick_sync={sync!r} is not ported yet: {_TICK_ENGINE_ITEM}")
+    if sync != "barrier":
+        raise ValueError(f"unknown tick sync {sync!r} (auto|barrier|stream)")
+    return sync
+
+
+def refuse_tick_layers(placement=None, residency=None, adversary=None) -> None:
+    """Raise ``NotImplementedError`` for a federation layer the port lacks,
+    given as an argument or through ``REPRO_TICK_PLACEMENT``,
+    ``REPRO_TICK_RESIDENCY`` or ``REPRO_TICK_ADVERSARY``: a tick placement
+    or residency other than ``auto`` (they place the batched engine's
+    programs), or any adversary."""
+    for name, value, item in (("tick_placement", placement, _TICK_ENGINE_ITEM),
+                              ("tick_residency", residency, _TICK_ENGINE_ITEM),
+                              ("tick_adversary", adversary, _ADVERSARY_ITEM)):
+        if value is None:
+            value = os.environ.get("REPRO_" + name.upper(), "").strip() or None
+        if not _off(value):
+            raise NotImplementedError(f"{name}={value!r} is not ported yet: {item}")
+
+
+def resolve_tick_faults(spec=None):
+    """The federation fault-injection layer: ``None`` (off, the default) or
+    a plan description the scheduler hands to ``FaultPlan.parse``. An
+    already-built ``FaultPlan``/``FaultInjector`` passes through; ``None``
+    consults ``REPRO_TICK_FAULTS``; off-values resolve to ``None``."""
+    return _fault_spec(spec, "REPRO_TICK_FAULTS")

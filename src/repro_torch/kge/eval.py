@@ -19,7 +19,7 @@ one entity block at a time.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,10 +118,31 @@ def build_filter_arrays(
         filt_h[:, 0] = test[:, 0]
         return filt_t.astype(np.int32), filt_h.astype(np.int32)
 
-    hr_t, rt_h = _filter_mask(all_triples, 0)
-    tails = [sorted(hr_t[(int(h), int(r))]) for h, r, _ in test]
-    heads = [sorted(rt_h[(int(r), int(t))]) for _, r, t in test]
+    known = np.asarray(all_triples, np.int64)
+    q = np.asarray(test, np.int64).reshape(-1, 3)
+    tails = _known_ids(known[:, :2], known[:, 2], q[:, :2])
+    heads = _known_ids(known[:, 1:], known[:, 0], q[:, 1:])
     return pack_padded_filters(tails), pack_padded_filters(heads)
+
+
+def _known_ids(keys: np.ndarray, ids: np.ndarray, queries: np.ndarray) -> List[np.ndarray]:
+    """For each query key (a row of two ids), the sorted distinct ``ids`` of
+    the rows of ``keys`` equal to it: what ``_filter_mask``'s sets hold, by
+    one sort instead of a Python pass over every triple. A query key that
+    no row has raises ``KeyError``, as the dict lookup does."""
+    span = int(max(keys[:, 1].max(initial=0), queries[:, 1].max(initial=0))) + 1
+    code = keys[:, 0] * span + keys[:, 1]
+    order = np.lexsort((ids, code))
+    code, ids = code[order], ids[order]
+    fresh = np.ones(len(code), bool)
+    fresh[1:] = (code[1:] != code[:-1]) | (ids[1:] != ids[:-1])
+    code, ids = code[fresh], ids[fresh]
+    want = queries[:, 0] * span + queries[:, 1]
+    lo, hi = np.searchsorted(code, want, "left"), np.searchsorted(code, want, "right")
+    missing = np.flatnonzero(lo == hi)
+    if missing.size:
+        raise KeyError(tuple(int(x) for x in queries[missing[0]]))
+    return [ids[a:b] for a, b in zip(lo, hi)]
 
 
 # ---------------------------------------------------------------------------

@@ -16,13 +16,13 @@ sits on is zero-copy; every other device costs one counted transfer.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.distributed import committed_device
-from repro_torch.kge.eval import _filter_mask, pack_padded_filters
+from repro_torch.kge.eval import _filter_mask
 
 
 def _pow2(n: int) -> int:
@@ -31,30 +31,61 @@ def _pow2(n: int) -> int:
 
 class FilterPack:
     """Padded CSR filter rows for tail queries, one row per known (h, r) key
-    plus a trailing all(−1) sentinel row for unknown keys."""
+    (in the order the keys first occur, each row its distinct tails
+    ascending) plus a trailing all(−1) sentinel row for unknown keys. Built
+    by sorting the known triples, not by a Python pass over them."""
 
     def __init__(self, known_triples, num_entities: int):
         known = (
             np.zeros((0, 3), np.int64) if known_triples is None
-            else np.asarray(known_triples)
+            else np.asarray(known_triples, np.int64).reshape(-1, 3)
         )
         self.num_entities = int(num_entities)
-        self.hr_t, self.rt_h = _filter_mask(known, num_entities)
-        rows: List[List[int]] = [sorted(v) for v in self.hr_t.values()]
-        self._row_of: Dict[Tuple[int, int], int] = {
-            k: i for i, k in enumerate(self.hr_t)
-        }
-        maxw = max((len(x) for x in rows), default=1)
-        self.width = _pow2(maxw)
-        self.rows = pack_padded_filters(rows + [[]], width=self.width)
+        self._known = known
+        self._span = int(known[:, 1].max()) + 1 if len(known) else 1
+        code = known[:, 0] * self._span + known[:, 1]
+        self._keys, first = np.unique(code, return_index=True)
+        # row of each sorted key: keys are numbered in first-occurrence order
+        self._row_of_key = np.empty(len(self._keys), np.int64)
+        self._row_of_key[np.argsort(first, kind="stable")] = np.arange(len(self._keys))
+        order = np.lexsort((known[:, 2], code))
+        code, tail = code[order], known[order, 2]
+        fresh = np.ones(len(code), bool)
+        fresh[1:] = (code[1:] != code[:-1]) | (tail[1:] != tail[:-1])
+        code, tail = code[fresh], tail[fresh]
+        key_at = np.searchsorted(self._keys, code)
+        counts = np.bincount(key_at, minlength=len(self._keys))
+        self.width = _pow2(int(counts.max()) if len(counts) else 1)
+        self.rows = np.full((len(self._keys) + 1, self.width), -1, np.int32)
+        starts = np.cumsum(counts) - counts
+        self.rows[self._row_of_key[key_at], np.arange(len(code)) - starts[key_at]] = tail
+        self._masks = None
+
+    @property
+    def hr_t(self) -> Dict[Tuple[int, int], set]:
+        """(h, r) → {t} over the known triples, as ``kge.eval._filter_mask``."""
+        return self._filter_mask()[0]
+
+    @property
+    def rt_h(self) -> Dict[Tuple[int, int], set]:
+        """(r, t) → {h} over the known triples."""
+        return self._filter_mask()[1]
+
+    def _filter_mask(self):
+        if self._masks is None:
+            self._masks = _filter_mask(self._known, self.num_entities)
+        return self._masks
 
     def row_index(self, h: np.ndarray, r: np.ndarray) -> np.ndarray:
         sentinel = len(self.rows) - 1
-        get = self._row_of.get
-        return np.fromiter(
-            (get((int(hh), int(rr)), sentinel) for hh, rr in zip(h, r)),
-            np.int64, count=len(h),
-        )
+        h = np.asarray(h, np.int64).reshape(-1)
+        r = np.asarray(r, np.int64).reshape(-1)
+        if not len(self._keys):
+            return np.full(len(h), sentinel, np.int64)
+        code = h * self._span + r
+        at = np.minimum(np.searchsorted(self._keys, code), len(self._keys) - 1)
+        found = (self._keys[at] == code) & (h >= 0) & (r >= 0) & (r < self._span)
+        return np.where(found, self._row_of_key[at], sentinel)
 
     def rows_for(self, h: np.ndarray, r: np.ndarray) -> np.ndarray:
         """(B, width) int32 known-tail filter rows for (h, r) queries."""

@@ -99,3 +99,30 @@ def jax_stepwise_noise(key, cfg):
         key, sub = jax.random.split(key)
         out.append(np.array(jax.random.laplace(sub, (2, cfg.batch))))
     return np.stack(out)
+
+
+class JaxSchedulerDraws:
+    """A draw source for the port's ``FederationScheduler(draws=...)`` that
+    replays the JAX scheduler's streams: the PPAT key ``PRNGKey(seed + 101)``
+    split once per handshake (``ppat``), and each owner's engine key
+    ``PRNGKey(seed + i + 7919)`` split once per ``train_epochs`` (``train``),
+    owners numbered in the order of ``names``."""
+
+    def __init__(self, names, seed: int, cfg, dim: int):
+        self.cfg, self.dim = cfg, dim
+        self._key = jax.random.PRNGKey(seed + 101)
+        self._engine = {n: jax.random.PRNGKey(seed + i + 7919) for i, n in enumerate(names)}
+
+    def ppat(self, host, client, n_x: int, n_y: int):
+        import torch
+
+        from repro_torch.core.ppat import PPATDraws, host_params_from_numpy
+
+        self._key, key = jax.random.split(self._key)
+        init = host_params_from_numpy(jax_ppat_init(key, self.dim, self.cfg), "cpu")
+        draws = jax_ppat_draws(key, self.cfg, n_x, n_y)
+        return init, PPATDraws(*(torch.as_tensor(a) for a in draws))
+
+    def train(self, owner, epochs: int, n_pad: int, nb: int, batch: int, num_entities: int):
+        self._engine[owner], sub = jax.random.split(self._engine[owner])
+        return jax_draws(sub, epochs, n_pad, nb, batch, num_entities)

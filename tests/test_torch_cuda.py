@@ -620,6 +620,47 @@ def test_ppat_on_the_card_equals_the_cpu(cuda_dev):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
 
 
+# ------------------------------------------------------------- federation
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["accuracy", "hit10"])
+def test_scheduler_on_the_card_equals_the_cpu(cuda_dev, monkeypatch, metric):
+    """``FederationScheduler`` over three owners of a small universe on the
+    card (epoch kernel, rank kernel) and on the CPU (their plain versions),
+    both under ``REPRO_TRAIN_IMPL=fused``, from the same start tables and
+    from two ``GeneratorDraws`` of one seed (the same CPU draws in the same
+    order): equal events, bit-equal epsilon, tables within 1e-5."""
+    from repro_torch.core.federation import FederationScheduler, GeneratorDraws
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.data import synthesize_universe
+
+    monkeypatch.setenv("REPRO_TRAIN_IMPL", "fused")
+    uni = synthesize_universe(seed=1, scale=1 / 500)
+    kgs = {n: uni[n] for n in ("Dbpedia", "Yago", "Geonames")}
+    cfg = PPATConfig(steps=12, seed=0)
+    runs = []
+    for dev in (cuda_dev, torch.device("cpu")):
+        s = FederationScheduler(kgs, dim=16, ppat_cfg=cfg, local_epochs=2, update_epochs=1,
+                                seed=0, score_metric=metric, device=dev,
+                                draws=GeneratorDraws(47, cfg, 16))
+        g = torch.Generator().manual_seed(53)
+        for tr in s.trainers.values():
+            tr.params = {k: (torch.rand(v.shape, generator=g) - 0.5).to(dev)
+                         for k, v in tr.params.items()}
+        s.initial_training()
+        s.run(max_ticks=2)
+        runs.append(s)
+    a, b = runs
+    keys = ("tick", "host", "client", "kind", "accepted", "fault", "owner_clock", "view_version")
+    assert [[getattr(e, k) for k in keys] for e in a.events] == \
+        [[getattr(e, k) for k in keys] for e in b.events]
+    assert [repr(e.epsilon) for e in a.events] == [repr(e.epsilon) for e in b.events]
+    assert a.accountant.epsilon() == b.accountant.epsilon()
+    assert sum(e.kind == "ppat" for e in a.events) == 6
+    for n in kgs:
+        for k, v in b.trainers[n].params.items():
+            torch.testing.assert_close(a.trainers[n].params[k].cpu(), v, atol=1e-5, rtol=0)
+
+
 # ------------------------------------------------------- LM serving kernels
 FLASH_CASES = [
     # b, h, kv, s, dh, causal, window

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -50,7 +51,9 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/flash_attention/ref.py",
                  "src/repro_torch/kernels/ssd_scan/ops.py",
                  "src/repro_torch/kernels/ssd_scan/ref.py",
-                 "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py"):
+                 "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py",
+                 "src/repro_torch/core/federation.py", "src/repro_torch/core/faults.py",
+                 "examples/quickstart_torch.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
     assert (REPO / "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu").is_file()
@@ -118,6 +121,13 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         CausalLM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-0.6b", "--reduced"])
+    from repro_torch.core.federation import FederationScheduler
+    from repro_torch.kge.data import synthesize_universe
+
+    kgs = synthesize_universe(seed=0, scale=1 / 2000)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FederationScheduler(kgs, dim=4)
+    assert FederationScheduler(kgs, dim=4, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_build_is_lazy():

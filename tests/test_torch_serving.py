@@ -68,6 +68,22 @@ def _sums_ok(tier):
 
 
 # ------------------------------------------------------------------ tables
+@pytest.mark.parametrize("n", [0, 1, 500])
+def test_filter_pack_rows_for_any_key(n):
+    """Known keys, unknown keys, a relation past the known ones and
+    negative ids: the same rows as the JAX package's ``FilterPack`` (the
+    all(−1) sentinel for every key it does not hold), also with no or one
+    known triple."""
+    rng = np.random.default_rng(n)
+    tri = np.stack([rng.integers(0, 40, n), rng.integers(0, 5, n), rng.integers(0, 40, n)], 1)
+    a, b = FilterPack(tri, 40), jtables.FilterPack(tri, 40)
+    assert a.width == b.width
+    np.testing.assert_array_equal(a.rows, b.rows)
+    h = np.concatenate([tri[:50, 0], rng.integers(-3, 45, 200)])
+    r = np.concatenate([tri[:50, 1], rng.integers(-3, 9, 200)])
+    np.testing.assert_array_equal(a.rows_for(h, r), b.rows_for(h, r))
+
+
 def test_filter_pack_and_id_checks_match(known):
     a, b = FilterPack(known, E), jtables.FilterPack(known, E)
     assert a.width == b.width and a.width & (a.width - 1) == 0
