@@ -6,10 +6,12 @@ one full-width epoch through ``repro_torch.kge.trainer.KGETrainer`` and
 scores it, runs one full-width PPAT handshake with its KGEmb update,
 retrain and backtrack through ``repro_torch.core``, serves qwen3-0.6b and
 mamba2-2.7b at full width through ``repro_torch.serving.ServingEngine``,
-times the kernels, and runs two ticks of the federation scheduler over Yago
-and Dbpedia with a serving tier attached.
+times the kernels, runs two ticks of the federation scheduler over Yago
+and Dbpedia with a serving tier attached, and drives a poisoning storm
+against the Byzantine defenses over the same owners, cut by a checkpoint
+and resumed.
 
-    python3 chip_smoke.py            # one CUDA card; about three minutes on an H100
+    python3 chip_smoke.py            # one CUDA card; about three and a half minutes on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
@@ -153,6 +155,27 @@ Phases (every failed check ends the run with a non-zero exit):
    d = 16, 12 PPAT rounds, two ticks) on the card and on the CPU under
    ``REPRO_TRAIN_IMPL=fused`` from the same CPU draws: equal events,
    bit-equal epsilon, tables within 1e-5.
+16. a poisoning storm at full width: phase 15's universe and scheduler
+   (no tier) under the JAX package's resume-test storm
+   (``tick_adversary="drift=0.4,replay=0.6,seed=2,strength=0.9,frac=0.5"``)
+   with ``robust_agg="median"`` and ``cos_screen=0.3``. One tick, then
+   checks: each handshake's attack is the plan's draw, the replay cache is
+   filled, every tampered row is finite within ``evade * bound`` and the
+   frozen view untouched, each verdict is ``poison`` exactly when its mean
+   cosine is below its threshold, and a poison decays the client's
+   reputation (each mean cosine and threshold printed, captured by the
+   stage clock). ``save_scheduler`` under ``build/``, two more ticks; a
+   fresh scheduler restores the checkpoint and runs the same two: events
+   equal in every field but ``seconds`` and ``sim_finish``, ledgers,
+   queues and lifetime epsilon equal, every table bit-equal. The epoch and
+   rank launches (counters zeroed before the phase) equal what the plan
+   implies. The host clock of tamper, ``robust_rows``, save and restore,
+   the checkpoint's bytes (the file is deleted), ``robust_rows`` alone at
+   123,904 x 100 in each mode, and the storm at phase 15's small universe,
+   barrier and streamed (staleness bound 0), on the card and on the CPU
+   from the same draws (equal events with attack, fault and level, equal
+   reputation, bit-equal epsilon, tables within 1e-5), the card's
+   checkpoint restored into a CPU scheduler for one more tick.
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -164,9 +187,9 @@ launch lasts tens of ms, and its ``ms`` is the device time of one (as
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15 at a tiny size (the LM
-cards reduced) on the CPU with the plain versions (no kernels, no timings)
-and also exits non-zero.
+``--rehearse`` runs phases 3, 6, 9, 12, 13, 15 and 16 at a tiny size (the
+LM cards reduced) on the CPU with the plain versions (no kernels, no
+timings) and also exits non-zero.
 """
 from __future__ import annotations
 
@@ -251,6 +274,11 @@ FED_SMALL_OWNERS = ("Dbpedia", "Yago", "Geonames")  # card-vs-CPU universe
 FED_SMALL_DIM = 16
 FED_SMALL_ROUNDS = 12
 FED_TABLE_ATOL = 1e-5    # phase 5's bound for 64 steps
+#: phase 16's storm: the reference's resume test (``tests/test_adversary.py``)
+STORM_SPEC = "drift=0.4,replay=0.6,seed=2,strength=0.9,frac=0.5"
+STORM_COS = 0.3          # its ``cos_screen``, with ``robust_agg="median"``
+STORM_CUT = 1            # ticks before the checkpoint
+STORM_RESUMED = 2        # ticks after it, uninterrupted and resumed
 
 
 class SmokeFailure(RuntimeError):
@@ -1905,22 +1933,31 @@ def fed_wave(tier, kg, rng, n_rank, n_topk):
     return reqs
 
 
+def fed_universe(np, registry_cls, args, sizes):
+    """Phase 15's owners: Dbpedia (phase 6's store), Yago (phase 9's), and
+    phase 9's alignment as an explicit registry."""
+    (e_d, r_d, n_d), (e_y, r_y, n_y), n_al = sizes
+    kgs = {"Dbpedia": make_kg(np, args.seed, e_d, r_d, draw_known(np, args.seed, e_d, r_d, n_d)),
+           "Yago": make_kg(np, args.seed + 21, e_y, r_y,
+                           draw_known(np, args.seed + 21, e_y, r_y, n_y), "yago-uniform")}
+    rng = np.random.default_rng(args.seed + 23)  # phase 9's alignment
+    reg = registry_cls()
+    reg.add_entities("Yago", "Dbpedia", np.sort(rng.choice(e_y, n_al, replace=False)),
+                     rng.choice(e_d, n_al, replace=False))
+    return kgs, reg
+
+
 def federation_path(torch, np, ops, sops, serving, dev, args, card, sizes):
     """Phase 15: Alg. 1 through ``FederationScheduler`` over Yago and
-    Dbpedia at full width, with a serving tier attached to Dbpedia."""
+    Dbpedia at full width, with a serving tier attached to Dbpedia. Returns
+    the results and the universe ``(kgs, registry)``."""
     from repro_torch.core import federation as fed_mod
     from repro_torch.core.alignment import AlignmentRegistry
     from repro_torch.core.privacy import MomentsAccountant
 
     (e_d, r_d, n_d), (e_y, r_y, n_y), n_al = sizes
     t0 = time.perf_counter()
-    kgs = {"Dbpedia": make_kg(np, args.seed, e_d, r_d, draw_known(np, args.seed, e_d, r_d, n_d)),
-           "Yago": make_kg(np, args.seed + 21, e_y, r_y,
-                           draw_known(np, args.seed + 21, e_y, r_y, n_y), "yago-uniform")}
-    rng = np.random.default_rng(args.seed + 23)  # phase 9's alignment
-    reg = AlignmentRegistry()
-    reg.add_entities("Yago", "Dbpedia", np.sort(rng.choice(e_y, n_al, replace=False)),
-                     rng.choice(e_d, n_al, replace=False))
+    kgs, reg = fed_universe(np, AlignmentRegistry, args, sizes)
     sched = fed_mod.FederationScheduler(
         kgs, dim=DIM, registry=reg, score_metric="hit10", score_max_test=FED_MAX_TEST,
         update_epochs=1, seed=args.seed, device=dev)
@@ -2050,7 +2087,7 @@ def federation_path(torch, np, ops, sops, serving, dev, args, card, sizes):
             + f"; {card}")
         for name, ms in prof["top"]:
             log(f"profile federation tick 1:   {ms:10.3f} ms  {name}")
-    return out
+    return out, (kgs, reg)
 
 
 def fed_card_vs_cpu(torch, np, dev, seed):
@@ -2112,6 +2149,356 @@ def fed_card_vs_cpu(torch, np, dev, seed):
     return err
 
 
+# ------------------------------------------------------------ phase 16
+class StormClock(StageClock):
+    """Phase 15's stage clock plus the robustness stages: the adversary's
+    tamper and ``robust_rows``, each call synchronised. Records each
+    handshake's cosine threshold (``_cos_tau`` of its client as the
+    handshake starts) and mean cosine (``robust_rows``' second output), and
+    each tamper's input view, a copy of its ``ent`` taken before the
+    tamper, its rows and its output."""
+
+    def __init__(self, torch, fed_mod, sched, dev):
+        super().__init__(torch, fed_mod, sched, dev)
+        self.verdicts, self.tampers = [], []
+
+    def __enter__(self):
+        super().__enter__()
+        m, sched = self.fed_mod, self.sched
+        robust = self._timed("robust_rows", m.robust_rows)
+
+        def robust_rows(*a, **kw):
+            out = robust(*a, **kw)
+            self.verdicts[-1]["mean_cos"] = float(out[1])
+            return out
+        self._patch(m, "robust_rows", robust_rows)
+        federate = sched.federate_once
+
+        def federate_once(host, client, **kw):
+            self.verdicts.append({"host": host, "client": client,
+                                  "tau": sched._cos_tau(client), "mean_cos": None})
+            return federate(host, client, **kw)
+        self._patch(sched, "federate_once", federate_once)
+        adv = sched._adversary_for(None)
+        tamper = self._timed("tamper", adv.tamper_view)
+
+        def tamper_view(view, attack, tick, host, client, *, rows):
+            before = view["ent"].clone()
+            out = tamper(view, attack, tick, host, client, rows=rows)
+            self.tampers.append((view, before, attack, rows, out))
+            return out
+        self._patch(adv, "tamper_view", tamper_view)
+        return self
+
+
+def storm_events(evs):
+    """Every field of each event but ``seconds`` and ``sim_finish``."""
+    keys = ("tick", "host", "client", "kind", "accepted", "fault", "attack", "level",
+            "owner_clock", "view_version", "score_before", "score_after")
+    return [tuple(getattr(e, k) for k in keys) + (repr(e.epsilon),) for e in evs]
+
+
+def check_tampers(torch, tampers, bound):
+    """No tamper wrote into the view it was given (its ``ent`` equals the
+    copy taken before); each drift or sybil tamper changed at least one row,
+    only rows the host reads, and every changed row is finite with norm at
+    most ``evade * bound``."""
+    n_rows = 0
+    for view, before, attack, rows, out in tampers:
+        check(torch.equal(view["ent"], before), f"a {attack.kind} tamper wrote into the "
+              "frozen view")
+        if attack.kind == "replay":
+            continue
+        changed = (out["ent"] != before).any(1).nonzero().ravel()
+        check(changed.numel() > 0, f"a {attack.kind} tamper changed no row")
+        read = torch.as_tensor(rows, device=changed.device)
+        check(bool(torch.isin(changed, read).all()), "a tamper changed a row the host never reads")
+        new = out["ent"][changed]
+        cap = attack.evade * bound
+        check(bool(torch.isfinite(new).all())
+              and float(torch.linalg.vector_norm(new, dim=1).max()) <= cap * (1 + 1e-6),
+              f"a tampered row is not finite or exceeds {cap}")
+        n_rows += int(changed.numel())
+    return n_rows
+
+
+def check_verdicts(events, verdicts):
+    """Pairs each handshake that reached the cosine gate (fault ``None`` or
+    ``poison``) with its verdict and checks the rule: ``poison`` iff its
+    mean cosine is below its client's τ. Returns the pairs."""
+    hs = [e for e in events if e.kind == "ppat" and e.fault in (None, "poison")]
+    check(len(verdicts) == len(hs), f"{len(verdicts)} verdicts for {len(hs)} handshakes")
+    for e, v in zip(hs, verdicts):
+        check((v["host"], v["client"]) == (e.host, e.client) and v["mean_cos"] is not None,
+              f"verdict {v} is not handshake {e.client}->{e.host}'s")
+        check((e.fault == "poison") == (v["mean_cos"] < v["tau"]),
+              f"{e.client}->{e.host}: fault {e.fault} with mean_cos {v['mean_cos']} and "
+              f"tau {v['tau']}")
+    return list(zip(hs, verdicts))
+
+
+def storm_path(torch, np, ops, sops, dev, args, card, universe):
+    """Phase 16: the reference's resume-test storm with the median and
+    cosine defenses over phase 15's universe at full width, cut by a
+    checkpoint after one tick and resumed in a fresh scheduler."""
+    from repro_torch.checkpoint import restore_scheduler, save_scheduler
+    from repro_torch.core import federation as fed_mod
+    from repro_torch.core.adversary import AdversaryPlan
+
+    kgs, reg = universe
+    plan = AdversaryPlan.parse(STORM_SPEC)
+
+    def make():
+        return fed_mod.FederationScheduler(
+            kgs, dim=DIM, registry=reg, score_metric="hit10", score_max_test=FED_MAX_TEST,
+            update_epochs=1, seed=args.seed, device=dev, tick_adversary=STORM_SPEC,
+            robust_agg="median", cos_screen=STORM_COS)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    path = REPO / "build" / "storm_checkpoint.npz"
+    ops.reset_launches()
+    sops.reset_launches()
+    s1 = make()
+    t0 = time.perf_counter()
+    s1.initial_training(1)
+    init_s = time.perf_counter() - t0
+    rep_before = dict(s1._reputation)
+    with StormClock(torch, fed_mod, s1, dev) as clock:
+        t0 = time.perf_counter()
+        s1.run(max_ticks=STORM_CUT)
+        sync()
+        tick1_s = time.perf_counter() - t0
+    cut = s1._tick
+    first = [e for e in s1.events if e.kind != "init"]
+    hs = [e for e in first if e.kind == "ppat"]
+    check(bool(hs), "the storm's first tick planned no handshake")
+    for e in hs:
+        drawn = plan.draw(e.tick, e.host, e.client)
+        check(e.attack == (drawn.kind if drawn else None),
+              f"{e.client}->{e.host}: attack {e.attack}, the plan draws {drawn}")
+    check(bool(s1._adversary._stale), "the replay cache is empty after the first tick")
+    tampered = check_tampers(torch, clock.tampers, plan.bound)
+    check(all(e.fault in (None, "poison") for e in hs),
+          f"a tick-1 handshake failed otherwise: {[e.fault for e in hs]}")
+    want_rep = dict(rep_before)
+    for e, v in check_verdicts(hs, clock.verdicts):
+        if e.fault == "poison":
+            want_rep[e.client] = want_rep.get(e.client, 1.0) * s1.rep_decay
+        elif e.accepted:
+            for p in (e.host, e.client):
+                if p in want_rep:
+                    want_rep[p] += s1.rep_recover
+                    if want_rep[p] >= 1.0:
+                        del want_rep[p]
+    check(s1._reputation == want_rep,
+          f"reputation {s1._reputation} after the verdicts, want {want_rep} (poison decays "
+          "the client's)")
+    rep_cut = dict(s1._reputation)
+    sync()
+    t0 = time.perf_counter()
+    save_scheduler(str(path), s1)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = path.stat().st_size
+    t0 = time.perf_counter()
+    s1.run(max_ticks=STORM_RESUMED)
+    sync()
+    tail_s = time.perf_counter() - t0
+
+    s2 = make()
+    t0 = time.perf_counter()
+    restore_scheduler(str(path), s2)
+    sync()
+    restore_s = time.perf_counter() - t0
+    path.unlink()
+    t0 = time.perf_counter()
+    s2.run(max_ticks=STORM_RESUMED)
+    sync()
+    resumed_s = time.perf_counter() - t0
+    launches = {k: v for c in (ops.LAUNCHES, sops.LAUNCHES) for k, v in c.items()}
+
+    tail = [e for e in s1.events if e.tick > cut]
+    check(storm_events(tail) == storm_events(s2.events),
+          f"the resumed run's events differ from the uninterrupted run's: "
+          f"{storm_events(tail)} vs {storm_events(s2.events)}")
+    for ledger in ("_reputation", "_retries", "_deferred", "_quarantine_until",
+                   "_peer_failures", "_owner_clock", "_view_version", "best_score", "epsilons"):
+        check(getattr(s1, ledger) == getattr(s2, ledger), f"{ledger} differs after the resume")
+    check({n: list(q) for n, q in s1.queue.items()} == {n: list(q) for n, q in s2.queue.items()},
+          "the queues differ after the resume")
+    check(s1.accountant.epsilon() == s2.accountant.epsilon(), "lifetime epsilon differs")
+    for n in s1.trainers:
+        for k, v in s1.trainers[n].params.items():
+            check(torch.equal(v, s2.trainers[n].params[k]),
+                  f"{n}.{k} is not bit-equal after the resume")
+    events = first + tail + [e for e in s2.events]
+    trained = len(s1.trainers) + len(first) + len(tail) + len(s2.events)
+    want = {"sparse_sgd_step": trained, "fused_ranks": 2 * -(-FED_MAX_TEST // 128) * trained,
+            "pairwise_scores": 0}
+    if dev.type == "cuda":
+        check({k: launches.get(k, 0) for k in want} == want,
+              f"the storm launched {launches}, the plan implies {want}")
+    stages = dict(clock.secs)
+    stages["other"] = tick1_s - sum(stages.values())
+    out = {"init_s": init_s, "tick1_s": tick1_s, "tail_s": tail_s, "resumed_s": resumed_s,
+           "save_s": save_s, "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes,
+           "stage_s": stages, "stage_calls": clock.calls, "tampered_rows": tampered,
+           "verdicts": clock.verdicts, "reputation_at_cut": rep_cut,
+           "reputation": dict(s1._reputation),
+           "events": storm_events(events), "launches": launches,
+           "replay_cache": sorted(s1._adversary.stale_arrays())}
+    log(f"storm: {STORM_SPEC}, robust_agg median, cos_screen {STORM_COS}, on {dev}; initial "
+        f"training {init_s:.2f}s; tick {cut} {tick1_s:.3f}s ({tampered} rows tampered, replay "
+        f"cache {out['replay_cache']})")
+    for e, v in zip(hs, clock.verdicts):
+        log(f"storm: tick {e.tick} {e.client}->{e.host} attack {e.attack}: mean_cos "
+            f"{v['mean_cos']:.6f} tau {v['tau']:.6f} -> "
+            f"{e.fault or ('accepted' if e.accepted else 'restored')}")
+    log(f"storm: reputation after tick {cut} {rep_cut}, after tick {s1._tick} "
+        f"{s1._reputation}")
+    log(f"storm: checkpoint {ckpt_bytes} bytes, saved {save_s:.3f}s, restored {restore_s:.3f}s; "
+        f"uninterrupted ticks {cut + 1}-{s1._tick} {tail_s:.3f}s, resumed {resumed_s:.3f}s: "
+        f"{len(tail)} events equal, tables bit-equal; launches {launches} (= the plan's {want})")
+    for e in tail:
+        log(f"storm: tick {e.tick} {e.kind} {e.client}->{e.host} attack {e.attack}: "
+            f"{e.fault or ('accepted' if e.accepted else 'restored')}")
+    log("storm stages (host clock, s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()) + f"; {card}")
+    return out
+
+
+def robust_rows_timings(torch, dev, seed, card):
+    """``robust_rows`` alone at the handshake's padded shape (123,904 x
+    100, 123,853 true rows) in each mode, with the mean cosine."""
+    from repro_torch.core.aggregation import ROBUST_AGG_MODES, robust_rows
+    from repro_torch.core.ppat import PPAT_BUCKET
+
+    rows = -(-ALIGNED // PPAT_BUCKET) * PPAT_BUCKET
+    g = torch.Generator(device=dev).manual_seed(seed + 61)
+    cur = torch.randn(rows, DIM, generator=g, device=dev)
+    synth = cur + 0.1 * torch.randn(rows, DIM, generator=g, device=dev)
+    out = {}
+    for mode in ROBUST_AGG_MODES:
+        out[mode] = time_ms(torch, lambda: robust_rows(cur, synth, ALIGNED, mode=mode,
+                                                       want_cos=True), ITERS)
+    log(f"robust_rows at {rows} x {DIM} ({ALIGNED} true rows), want_cos, ms per call: "
+        + ", ".join(f"{m} {v:.4f}" for m, v in out.items()) + f"; {card}")
+    return out
+
+
+def storm_card_vs_cpu(torch, np, dev, seed, tmp_dir):
+    """Phase 16 at phase 15's small universe: the storm with the defenses,
+    barrier and streamed (bound 0), on ``dev`` and on the CPU under
+    ``REPRO_TRAIN_IMPL=fused`` from two ``GeneratorDraws`` of one seed;
+    then a checkpoint of the ``dev`` run restored into a CPU scheduler with
+    the same draw source runs one more tick. The ``dev`` run's tampers and
+    verdicts are checked as at full width. Last, an honest release of the
+    host's own rows must pass the cosine gate."""
+    import os
+
+    from repro_torch.checkpoint import restore_scheduler, save_scheduler
+    from repro_torch.core import federation as fed_mod
+    from repro_torch.core.adversary import AdversaryPlan
+    from repro_torch.core.federation import FederationScheduler, GeneratorDraws
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.data import synthesize_universe
+
+    uni = synthesize_universe(seed=1, scale=1 / 500)
+    kgs = {n: uni[n] for n in FED_SMALL_OWNERS}
+    cfg = PPATConfig(steps=FED_SMALL_ROUNDS, seed=seed)
+    cpu = torch.device("cpu")
+    keys = ("tick", "host", "client", "kind", "accepted", "fault", "attack", "level",
+            "owner_clock", "view_version")
+
+    def make(where, sync):
+        s = FederationScheduler(kgs, dim=FED_SMALL_DIM, ppat_cfg=cfg, local_epochs=2,
+                                update_epochs=1, seed=seed, device=where,
+                                draws=GeneratorDraws(seed + 47, cfg, FED_SMALL_DIM),
+                                tick_adversary=STORM_SPEC, robust_agg="median",
+                                cos_screen=STORM_COS, tick_sync=sync, staleness_bound=0)
+        start = torch.Generator().manual_seed(seed + 53)
+        for tr in s.trainers.values():  # the same start tables on both
+            tr.params = {k: (torch.rand(v.shape, generator=start) - 0.5).to(where)
+                         for k, v in tr.params.items()}
+        return s
+
+    def evs(s, after=0):
+        return [tuple(getattr(e, k) for k in keys) for e in s.events if e.tick > after]
+
+    out = {}
+    old = os.environ.get("REPRO_TRAIN_IMPL")
+    os.environ["REPRO_TRAIN_IMPL"] = "fused"
+    try:
+        for sync in ("barrier", "stream"):
+            a, b = make(dev, sync), make(cpu, sync)
+            a.initial_training()
+            with StormClock(torch, fed_mod, a, dev) as clock:
+                a.run(max_ticks=2)
+            b.initial_training()
+            b.run(max_ticks=2)
+            check(evs(a) == evs(b), f"{sync}: card and CPU storms differ: {evs(a)} vs {evs(b)}")
+            tampered = check_tampers(torch, clock.tampers, AdversaryPlan.parse(STORM_SPEC).bound)
+            check_verdicts(a.events, clock.verdicts)
+            check(a._reputation == b._reputation, f"{sync}: reputation differs card vs CPU")
+            check([repr(e.epsilon) for e in a.events] == [repr(e.epsilon) for e in b.events]
+                  and a.accountant.epsilon() == b.accountant.epsilon(),
+                  f"{sync}: epsilon differs card vs CPU")
+            err = max(max_err(a.trainers[n].params[k].cpu(), b.trainers[n].params[k])
+                      for n in kgs for k in a.trainers[n].params)
+            check(err <= FED_TABLE_ATOL, f"{sync}: tables differ card vs CPU by {err}")
+            path = str(Path(tmp_dir) / f"storm_small_{sync}.npz")
+            save_scheduler(path, a)
+            cut = a._tick
+            a.run(max_ticks=1)
+            c = make(cpu, sync)
+            restore_scheduler(path, c)
+            os.remove(path)
+            c.run(max_ticks=1)
+            check(evs(c) == evs(a, cut),
+                  f"{sync}: the CPU resume of the card's checkpoint differs: {evs(c)} vs "
+                  f"{evs(a, cut)}")
+            faults = sorted({e.fault for e in a.events if e.fault})
+            attacks = sorted({e.attack for e in a.events if e.attack})
+            out[sync] = {"events": len(a.events), "table_err": err, "faults": faults,
+                         "attacks": attacks, "reputation": dict(a._reputation),
+                         "resumed_events": len(evs(c)), "tampered_rows": tampered,
+                         "verdicts": clock.verdicts}
+            log(f"check storm {sync} on {dev} vs the CPU ({', '.join(FED_SMALL_OWNERS)} at scale "
+                f"1/500, d={FED_SMALL_DIM}, {FED_SMALL_ROUNDS} PPAT rounds, 2 ticks, the same "
+                f"draws): {len(a.events)} events equal (attacks {attacks}, faults {faults}, "
+                f"levels {sorted({e.level for e in a.events})}), reputation {a._reputation}, "
+                f"epsilon bit-equal, tables max|err|={err:.3g}; the card's checkpoint resumed "
+                f"on the CPU: tick {cut + 1}'s {len(evs(c))} events equal; {tampered} rows "
+                f"tampered; {len(clock.verdicts)} verdicts by the rule, mean_cos "
+                + ", ".join(f"{v['mean_cos']:.4f}" for v in clock.verdicts))
+        # the gate against an honest release it must pass: the client's
+        # aligned rows are the host's own, so its synthesized rows point
+        # along them
+        h = make(dev, "barrier")
+        h.initial_training()
+        host, client = FED_SMALL_OWNERS[0], FED_SMALL_OWNERS[1]
+        idx_c, idx_h = (torch.as_tensor(i, device=dev) for i in h.registry.entities(client, host))
+        h.trainers[client].params["ent"][idx_c] = h.trainers[host].params["ent"][idx_h]
+        with StormClock(torch, fed_mod, h, dev) as clock:
+            e = h.federate_once(host, client)
+        v = clock.verdicts[0]
+        check(e.fault is None and v["mean_cos"] >= v["tau"],
+              f"an honest {client}->{host} release with the host's own rows: fault {e.fault}, "
+              f"mean_cos {v['mean_cos']} against tau {v['tau']}")
+        out["honest"] = {"mean_cos": v["mean_cos"], "tau": v["tau"], "accepted": e.accepted}
+        log(f"check storm gate on {dev}: an honest {client}->{host} release of the host's own "
+            f"rows passes, mean_cos {v['mean_cos']:.4f} >= tau {v['tau']:.4f} "
+            f"({'accepted' if e.accepted else 'restored'} by the backtrack)")
+    finally:
+        if old is None:
+            del os.environ["REPRO_TRAIN_IMPL"]
+        else:
+            os.environ["REPRO_TRAIN_IMPL"] = old
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2160,8 +2547,11 @@ def main(argv=None) -> int:
         for arch, counter in (("qwen3-0.6b", (fa, "flash_attention")),
                               ("mamba2-2.7b", (ks, "ssd_chunks"))):
             lm_serve(torch, np, arch, dev, args, "cpu", counter, LM_REHEARSE_PLAN)
-        federation_path(torch, np, ops, sops, serving, dev, args, "cpu",
-                        ((4_000, 50, 12_000), (3_000, YAGO["relations"], 12_000), 1_000))
+        _, universe = federation_path(
+            torch, np, ops, sops, serving, dev, args, "cpu",
+            ((4_000, 50, 12_000), (3_000, YAGO["relations"], 12_000), 1_000))
+        storm_path(torch, np, ops, sops, dev, args, "cpu", universe)
+        storm_card_vs_cpu(torch, np, dev, args.seed, REPO / "build")
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -2230,21 +2620,32 @@ def main(argv=None) -> int:
     times.update(lm_timings(torch, fa, ks, dev, card))
 
     t0 = time.perf_counter()
-    fed = federation_path(torch, np, ops, sops, serving, dev, args, card,
-                          ((DBPEDIA["entities"], DBPEDIA["relations"], DBPEDIA["triples"]),
-                           (YAGO["entities"], YAGO["relations"], YAGO["triples"]), ALIGNED))
+    fed, universe = federation_path(
+        torch, np, ops, sops, serving, dev, args, card,
+        ((DBPEDIA["entities"], DBPEDIA["relations"], DBPEDIA["triples"]),
+         (YAGO["entities"], YAGO["relations"], YAGO["triples"]), ALIGNED))
     fed["card_vs_cpu_table_err"] = fed_card_vs_cpu(torch, np, dev, args.seed)
     fed["phase_s"] = time.perf_counter() - t0
     log(f"federation: phase 15 took {fed['phase_s']:.1f}s")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    storm = storm_path(torch, np, ops, sops, dev, args, card, universe)
+    del universe
+    torch.cuda.empty_cache()
+    storm["robust_rows_ms"] = robust_rows_timings(torch, dev, args.seed, card)
+    storm["card_vs_cpu"] = storm_card_vs_cpu(torch, np, dev, args.seed, REPO / "build")
+    storm["phase_s"] = time.perf_counter() - t0
+    log(f"storm: phase 16 took {storm['phase_s']:.1f}s")
+    torch.cuda.empty_cache()
+
     # each kernel's launches over the main paths that run it: serving (phase
-    # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12)
-    # and the federation with its attached tier (phase 15)
+    # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12),
+    # the federation with its attached tier (phase 15) and the storm (phase 16)
     lm_launches = {**lm["qwen3-0.6b"]["launches"], **lm["mamba2-2.7b"]["launches"]}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
                 + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
-                + fed["launches"].get(name, 0)
+                + fed["launches"].get(name, 0) + storm["launches"].get(name, 0)
                 for name in KERNELS}
     for name in ("flash_attention", "ssd_chunks"):
         check(launches[name] > 0, f"the LM serving path never launched {name}")
@@ -2263,7 +2664,8 @@ def main(argv=None) -> int:
         })
     result = {"card": card, "build_s": build_s, "sass": sass, "check_max_abs_err": worst,
               "serve": res,
-              "train": train, "handshake": hs, "lm": lm, "federation": fed, "timings": times,
+              "train": train, "handshake": hs, "lm": lm, "federation": fed, "storm": storm,
+              "timings": times,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}
     try:

@@ -124,3 +124,66 @@ def virtual_extension(host_trainer, client_trainer, client_kg, aligned_client: n
     v_rel = generate_fn(client_trainer.get_relation_embeddings(rels))
     host_trainer.extend_tables(v_ent, v_rel, extra)
     return VirtualExtension(len(neigh), len(rels), extra)
+
+
+#: robust-acceptance modes applied to the synthesized aligned rows before
+#: the KGEmb update (``FederationScheduler(robust_agg=...)``)
+ROBUST_AGG_MODES = ("none", "clip", "median", "trimmed")
+
+
+def _masked_median(v: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
+    """Median over the first ``n`` rows of ``v`` (dim 0), robust to padded
+    tails: masked-out rows sort to +inf past the true rows."""
+    s = torch.sort(torch.where(mask, v, torch.inf), dim=0).values
+    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+
+
+def robust_rows(cur: torch.Tensor, synth: torch.Tensor, n: int, *, mode: str,
+                want_cos: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Robust acceptance over the synthesized aligned-entity rows, on the
+    PPAT_BUCKET-padded shapes: rows past ``n`` pass through untouched.
+
+    Statistics are over the per-row deltas (synth − current):
+
+      * ``clip``    — per-row delta-norm clipping at 2× the median norm;
+      * ``median``  — coordinate-wise clamp to median ± 3·MAD;
+      * ``trimmed`` — coordinate-wise clamp to the 20%-trimmed mean ± 3× the
+                      trimmed absolute deviation;
+      * ``none``    — identity.
+
+    ``want_cos`` also returns the mean per-row cosine between the host's
+    current rows and the raw synthesized rows (the cosine-shift screen);
+    else that value is 1. Plain PyTorch on the tensors' device: the JAX
+    package computes this outside any Pallas kernel."""
+    if mode not in ROBUST_AGG_MODES:
+        raise ValueError(f"unknown robust_agg mode {mode!r}")
+    nrows = synth.shape[0]
+    mask = torch.arange(nrows, device=synth.device) < n
+    nf = max(int(n), 1)
+    mean_cos = torch.ones((), dtype=synth.dtype, device=synth.device)
+    if want_cos:
+        num = (cur * synth).sum(1)
+        den = torch.linalg.vector_norm(cur, dim=1) * torch.linalg.vector_norm(synth, dim=1) + 1e-12
+        mean_cos = torch.where(mask, num / den, 0.0).sum() / nf
+    if mode == "none":
+        return synth, mean_cos
+    colmask = mask[:, None]
+    delta = synth - cur
+    if mode == "clip":
+        dn = torch.linalg.vector_norm(delta, dim=1)
+        cap = 2.0 * _masked_median(dn, mask, nf) + 1e-6
+        robust = delta * torch.clamp(cap / torch.clamp(dn, min=1e-12), max=1.0)[:, None]
+    elif mode == "median":
+        med = _masked_median(delta, colmask, nf)
+        mad = _masked_median((delta - med).abs(), colmask, nf)
+        robust = torch.clamp(delta, med - 3.0 * mad - 1e-6, med + 3.0 * mad + 1e-6)
+    else:  # trimmed
+        k = nf // 5  # 20% trimmed each side
+        s = torch.sort(torch.where(colmask, delta, torch.inf), dim=0).values
+        r = torch.arange(nrows, device=synth.device)[:, None]
+        keep = (r >= k) & (r < nf - k)
+        cnt = max(nf - 2 * k, 1)
+        center = torch.where(keep, s, 0.0).sum(0) / cnt
+        spread = torch.where(keep, (s - center).abs(), 0.0).sum(0) / cnt
+        robust = torch.clamp(delta, center - 3.0 * spread - 1e-6, center + 3.0 * spread + 1e-6)
+    return torch.where(colmask, cur + robust, synth), mean_cos

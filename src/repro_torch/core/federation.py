@@ -18,11 +18,22 @@ at its start: every Ready owner contributes one entry — a handshake with the
 front of its offer queue, or a self-train — and each handshake's client
 tables are frozen then, so accepts made during a tick take effect from the
 next one. The port runs a plan through the serial per-owner loop (the JAX
-package's ``tick_impl="reference"``) in lockstep ticks (``barrier``); that
-is its default, where the JAX package defaults to its batched engine,
-documented there as bit-identical to the serial one. The batched engine,
-streamed scheduling, the adversary and the Byzantine defenses are not
-ported: asking for them raises (``kernels.dispatch``).
+package's ``tick_impl="reference"``); that is its only engine, where the
+JAX package defaults to its batched engine, documented there as
+bit-identical to the serial one. The batched engine and its device
+placement are not ported: asking for them raises (``kernels.dispatch``).
+
+Two scheduling disciplines (``tick_sync=``, ``REPRO_TICK_SYNC``):
+``barrier`` (the default) runs lockstep ticks. ``stream`` (``_run_stream``)
+cuts each pass's plan into dependency levels (entries sharing a host or
+client serialize in plan order; disjoint ones stream), so an update accepted
+at one level can serve a later level of the same pass. Client views carry
+the client's published version; a view more than ``staleness_bound``
+versions stale at its level's dispatch is not used: the entry emits a
+``fault="stale"`` audit event and re-offers against a re-frozen view in a
+trailing level (once per pass; after that the offer goes back to the front
+of the queue). A streamed pass whose gate never fires takes the barrier's
+decisions.
 
 Frozen client views are copies (``trainer.snapshot()``), not the live
 tables: the port's training steps and ``set_entity_embeddings`` write tables
@@ -35,13 +46,35 @@ seeded crashes, stragglers, lost messages and corrupt embeddings
 restored, the handshake re-queued with exponential backoff, and repeated
 blame quarantines a peer for ``quarantine_ticks`` ticks.
 
+The adversary (``tick_adversary=``, ``REPRO_TICK_ADVERSARY``;
+``core.adversary``) tampers a handshake's frozen client view with seeded,
+norm-evading drift, sybil or replay attacks. The Byzantine defenses, off by
+default, answer it: ``robust_agg`` clamps the synthesized aligned rows
+toward the honest majority's deltas (``aggregation.robust_rows``),
+``cos_screen`` rejects a handshake whose synthesized rows point away from
+the host's own as ``fault="poison"`` (blaming the client, with a threshold
+that sharpens as the client's reputation decays), and with either armed the
+offer queue serves the best-reputed client first. Per entry the order is
+fixed: frozen view → adversary tamper → fault corruption → receiver screen,
+all before any PPAT draw. ``checkpoint.save_scheduler`` /
+``restore_scheduler`` cut and resume a run between ticks.
+
 Randomness is a seam. By default the PPAT rounds draw from a
 ``torch.Generator`` seeded ``seed + 101`` on the scheduler's device and each
 trainer from its own engine generator. ``draws=`` takes a source with two
 methods instead, called where the JAX package splits its keys:
 ``ppat(host, client, n_x, n_y) -> (init, PPATDraws)`` once per handshake
 that gets past the fault checks, and ``train(owner, epochs, n_pad, nb,
-batch, num_entities) -> [per-epoch draws]`` for every ``train_epochs``.
+batch, num_entities) -> [per-epoch draws]`` for every ``train_epochs``; a
+source that is to be checkpointed also has ``state_dict`` and
+``load_state_dict``. In a barrier tick a handshake draws its PPAT inputs
+when it runs. A streamed pass draws them in plan order when the pass is
+planned (``_assign_entry_draws``), skipping entries whose fault kills them
+before any draw (crash, drop, corrupt), and for a re-offer level when the
+level is made, as the JAX package splits its PPAT keys; a level then runs
+with the inputs its entries carry. So the PPAT draws come in the barrier's
+order whatever order the levels run in; the training draws still come as
+each level trains.
 """
 from __future__ import annotations
 
@@ -54,7 +87,14 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregation import kgemb_update, virtual_extension, virtual_structure
+from repro_torch.core.adversary import Adversary, resolve_adversary
+from repro_torch.core.aggregation import (
+    ROBUST_AGG_MODES,
+    kgemb_update,
+    robust_rows,
+    virtual_extension,
+    virtual_structure,
+)
 from repro_torch.core.alignment import AlignmentRegistry, procrustes
 from repro_torch.core.distributed import committed_device
 from repro_torch.core.faults import FaultError, FaultInjector, FaultPlan, screen_rows
@@ -70,6 +110,7 @@ from repro_torch.core.privacy import MomentsAccountant
 from repro_torch.kernels.dispatch import (
     refuse_tick_layers,
     resolve_device,
+    resolve_tick_adversary,
     resolve_tick_faults,
     resolve_tick_impl,
     resolve_tick_sync,
@@ -105,9 +146,15 @@ class FederationEvent:
     accepted: bool
     epsilon: float = float("nan")
     seconds: float = 0.0
-    #: non-None when this entry failed: "crash" | "straggle" | "drop" | "corrupt"
+    #: non-None when this entry failed: "crash" | "straggle" | "drop" |
+    #: "corrupt" | "poison" (the cosine-shift screen rejected the exchange) |
+    #: "stale" (a streamed entry's view was past the staleness bound)
     fault: Optional[str] = None
-    #: dependency level (0 for every barrier-mode entry)
+    #: the adversary's attack on this entry's client view ("drift" |
+    #: "sybil" | "replay"), if one was drawn
+    attack: Optional[str] = None
+    #: dependency level (0 for every barrier-mode entry; a streamed pass
+    #: numbers its levels from 0)
     level: int = 0
     #: the host's per-owner logical clock after this entry: how many entries
     #: (init, handshake, self-train) it has hosted
@@ -130,6 +177,11 @@ class TickEntry:
     client_view: Optional[Dict[str, torch.Tensor]] = None
     #: the client's published-version counter at view-freeze time
     view_version: int = 0
+    #: simulated publish time of the frozen view (streamed reporting only)
+    sim_wait: float = 0.0
+    #: a streamed handshake's PPAT inputs ``(init, PPATDraws)``, drawn in
+    #: plan order when its pass was planned; ``None`` draws when it runs
+    ppat_draws: Optional[tuple] = None
 
 
 class _ClientView:
@@ -175,6 +227,13 @@ class GeneratorDraws:
     def __init__(self, seed: int, cfg: PPATConfig, dim: int):
         self.cfg, self.dim = cfg, dim
         self._gen = torch.Generator().manual_seed(seed)
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The generator's state, for ``checkpoint.save_scheduler``."""
+        return {"gen": self._gen.get_state()}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self._gen.set_state(torch.as_tensor(np.asarray(state["gen"]), dtype=torch.uint8))
 
     def ppat(self, host: str, client: str, n_x: int, n_y: int):
         return (_init_host_params(self._gen, self.dim, self.cfg),
@@ -223,6 +282,7 @@ class FederationScheduler:
         quarantine_ticks: int = 4,
         tick_deadline: Optional[float] = None,
         tick_sync: Optional[str] = None,
+        staleness_bound: int = 0,
         device=None,
         draws=None,
     ):
@@ -230,15 +290,18 @@ class FederationScheduler:
         # on g_j.test); "valid" (default) is the leakage-free variant.
         # score_metric="hit10" backtracks on filtered Hit@10 through the
         # fused-rank kernel instead of classification accuracy.
-        if robust_agg != "none" or cos_screen is not None:
-            raise NotImplementedError(
-                "robust_agg/cos_screen (the Byzantine defenses) are not ported yet: "
-                "ROADMAP.md Queue 1 item 2")
+        if robust_agg not in ROBUST_AGG_MODES:
+            raise ValueError(f"unknown robust_agg mode {robust_agg!r} "
+                             f"(one of {'|'.join(ROBUST_AGG_MODES)})")
+        if cos_screen is not None and not -1.0 <= cos_screen <= 1.0:
+            raise ValueError(f"cos_screen={cos_screen} outside [-1, 1]")
+        if staleness_bound < 0:
+            raise ValueError(f"staleness_bound={staleness_bound} must be >= 0")
         if aggregation not in ("average", "replace"):
             raise ValueError(f"unknown aggregation mode {aggregation!r}")
         resolve_tick_impl(tick_impl)
         resolve_tick_sync(tick_sync)
-        refuse_tick_layers(tick_placement, tick_residency, tick_adversary)
+        refuse_tick_layers(tick_placement, tick_residency)
         self.device = resolve_device(device)
         self.score_split = score_split
         self.score_metric = score_metric
@@ -246,8 +309,18 @@ class FederationScheduler:
         self.tick_impl = tick_impl
         self.tick_placement = tick_placement
         self.tick_residency = tick_residency
+        #: a ``REPRO_TICK_ADVERSARY``-style spec, an ``AdversaryPlan`` or an
+        #: ``Adversary``; resolved per ``run()``
         self.tick_adversary = tick_adversary
+        #: robust aggregation over the synthesized aligned rows before KGEmb
+        self.robust_agg = robust_agg
+        #: cosine-shift accept gate (None = off), sharpened by ``_cos_tau``
+        self.cos_screen = cos_screen
         self.tick_sync = tick_sync
+        #: streamed mode's bounded-staleness rule, in published versions: a
+        #: frozen view whose client published more than this many versions
+        #: since the freeze re-offers instead
+        self.staleness_bound = staleness_bound
         #: a ``REPRO_TICK_FAULTS``-style spec, a ``FaultPlan`` or a
         #: ``FaultInjector``; resolved per ``run()``
         self.tick_faults = tick_faults
@@ -300,16 +373,22 @@ class FederationScheduler:
         #: quarantined peer → release tick
         self._quarantine_until: Dict[str, int] = {}
         #: reputation per peer (absent = 1.0): decays on blame, recovers on
-        #: accept. Kept as the JAX package keeps it; only its defenses read it.
+        #: accept. Only the armed defenses read it (``_defended``).
         self._reputation: Dict[str, float] = {}
         self._injector = None
         self._injector_src = None
+        #: the resolved ``Adversary``, cached across runs: it carries the
+        #: replay cache (``checkpoint.restore_scheduler`` refills it)
+        self._adversary: Optional[Adversary] = None
+        self._adversary_src = None
         self._tick = 0
         self._owner_clock: Dict[str, int] = {}
         #: per-owner published-version counter, bumped on every accept
         self._view_version: Dict[str, int] = {}
-        #: simulated time at which each owner is next free (reporting only)
+        #: simulated time at which each owner is next free, and at which its
+        #: latest accepted version was published (reporting only)
         self._owner_free: Dict[str, float] = {}
+        self._publish_sim: Dict[str, float] = {}
         self._draws = draws
         self._ppat_gen = torch.Generator(device=self.device).manual_seed(seed + 101)
         # scoring inputs come from the immutable splits: cached per owner,
@@ -442,8 +521,10 @@ class FederationScheduler:
         *,
         client_view: Optional[Dict[str, torch.Tensor]] = None,
         fault=None,
+        attack=None,
         screen: Optional[float] = None,
         deadline: Optional[float] = None,
+        ppat_draws: Optional[tuple] = None,
     ) -> FederationEvent:
         """ActiveHandshake + KGEmb-Update + Backtrack for one (client, host).
 
@@ -451,9 +532,14 @@ class FederationScheduler:
         its live tables). ``fault`` is this entry's injected fault:
         ``crash``/``drop`` raise ``FaultError`` before any PPAT draw, and a
         ``straggle`` adds its simulated delay to the measured time.
-        ``screen`` arms the corrupt-row screen on client gathers;
-        ``deadline`` turns an entry slower than it into a straggler whose
-        result is discarded through the backtrack restore."""
+        ``attack`` is the adversary's attack, already applied to
+        ``client_view``; the event records its kind. ``screen`` arms the
+        corrupt-row screen on client gathers; ``deadline`` turns an entry
+        slower than it into a straggler whose result is discarded through
+        the backtrack restore. ``ppat_draws`` gives the PPAT inputs drawn
+        earlier (a streamed pass draws them in plan order); by default they
+        are drawn here. The Byzantine defenses run whether or not an attack
+        fired: honest exchanges must survive them."""
         t0 = time.perf_counter()
         if self.state[host] is not NodeState.QUARANTINED:
             # a host quarantined mid-tick (blamed as an earlier entry's
@@ -475,12 +561,11 @@ class FederationScheduler:
             x = torch.cat([x, cli.get_relation_embeddings(rel[0])])
             y = torch.cat([y, hos_tr.get_relation_embeddings(rel[1])])
 
-        init = draws = None
-        if self._draws is not None:
-            init, draws = self._draws.ppat(host, client, x.shape[0], y.shape[0])
-            if init is not None:
-                init = {k: {n: as_device(v, x.device) for n, v in p.items()}
-                        for k, p in init.items()}
+        if ppat_draws is None:
+            ppat_draws = self._draw_ppat(host, client)
+        init, draws = ppat_draws
+        init = {k: {n: as_device(v, x.device) for n, v in p.items()} for k, p in init.items()}
+        # init and draws given: train_ppat draws nothing from the generator
         ppat_client, ppat_host, hist = train_ppat(
             x, y, self.ppat_cfg, generator=self._ppat_gen, init=init, draws=draws)
         self.epsilons.append(hist["epsilon"])
@@ -498,6 +583,15 @@ class FederationScheduler:
             refine = procrustes(synth, _pad_rows(y, PPAT_BUCKET))
             synth = synth @ refine
         n_ent = len(idx_c)
+        # robust acceptance over the entity rows on the padded shapes
+        # (relation rows and padding pass through); skipped entirely while
+        # the defenses are off
+        mean_cos: Optional[float] = None
+        if self._defended:
+            synth, mc = robust_rows(_pad_rows(y, PPAT_BUCKET), synth, n_ent,
+                                    mode=self.robust_agg, want_cos=self.cos_screen is not None)
+            if self.cos_screen is not None:
+                mean_cos = float(mc)
         kgemb_update(hos_tr, idx_h, synth[:n_ent], mode=self.aggregation)
         if rel is not None and len(rel[0]):
             cur = hos_tr.get_relation_embeddings(rel[1])
@@ -522,7 +616,11 @@ class FederationScheduler:
         if fault is not None and fault.kind == "straggle":
             elapsed += fault.delay
         straggled = deadline is not None and elapsed > deadline
-        accepted = after > before and not straggled
+        # cosine-shift accept gate: a release pointing away from the host's
+        # own rows is poison even if the backtrack score would admit it
+        poisoned = (mean_cos is not None and not straggled
+                    and mean_cos < self._cos_tau(client))
+        accepted = after > before and not straggled and not poisoned
         if accepted:  # Backtrack (Alg. 1 l. 17)
             self.best_score[host] = after
             self.best_snapshot[host] = hos_tr.snapshot()
@@ -530,19 +628,32 @@ class FederationScheduler:
             hos_tr.restore(self.best_snapshot[host])
         if self.state[host] is NodeState.BUSY:
             self.state[host] = NodeState.READY
+        fault_kind = "straggle" if straggled else ("poison" if poisoned else None)
         ev = FederationEvent(
             self._tick, host, client, "ppat", before, after, accepted,
-            epsilon=hist["epsilon"], seconds=elapsed,
-            fault="straggle" if straggled else None,
+            epsilon=hist["epsilon"], seconds=elapsed, fault=fault_kind,
+            attack=attack.kind if attack is not None else None,
         )
         self.events.append(ev)
         if accepted:
             self.broadcast(host)
             self._rep_recover(host, client)
             self._notify_accept(host)
-        if not straggled:
+        if fault_kind is None:
             self._note_entry_ok(host, client)
         return ev
+
+    def _draw_ppat(self, host: str, client: str) -> tuple:
+        """One handshake's PPAT inputs ``(init, PPATDraws)``: from the draw
+        source, else from the scheduler's generator, in the order
+        ``train_ppat`` would draw them itself (discriminators, then rounds).
+        The row counts come from the registry."""
+        n = self.registry.num_aligned(client, host)
+        if self._draws is not None:
+            return self._draws.ppat(host, client, n, n)
+        dim = self.trainers[client].params["ent"].shape[1]
+        return (_init_host_params(self._ppat_gen, dim, self.ppat_cfg),
+                draw_ppat(self._ppat_gen, self.ppat_cfg, n, n))
 
     def self_train_once(self, name: str, *, fault=None,
                         deadline: Optional[float] = None) -> FederationEvent:
@@ -589,7 +700,7 @@ class FederationScheduler:
                       emit: bool = True) -> None:
         """Isolate one failed entry: restore the host's best snapshot, emit
         the fault event, re-queue the handshake with exponential backoff,
-        and blame a peer (crash/straggle/error → host, corrupt → the sending
+        and blame a peer (crash/straggle → host, corrupt/poison → the sending
         client, drop → nobody), decaying its reputation and quarantining it
         at ``retry_budget`` consecutive failures."""
         snap = self.best_snapshot.get(host)
@@ -608,7 +719,7 @@ class FederationScheduler:
             self._retries[(host, client)] = att
             release = self._tick + self.backoff_ticks * (2 ** min(att - 1, 6))
             self._deferred.append((release, host, client))
-        peer = {"corrupt": client, "drop": None}.get(fault_kind, host)
+        peer = {"corrupt": client, "poison": client, "drop": None}.get(fault_kind, host)
         if peer is not None:
             self._reputation[peer] = self._reputation.get(peer, 1.0) * self.rep_decay
             n = self._peer_failures.get(peer, 0) + 1
@@ -628,6 +739,20 @@ class FederationScheduler:
                 del self._reputation[p]
             else:
                 self._reputation[p] = r
+
+    @property
+    def _defended(self) -> bool:
+        """Whether the Byzantine defenses are armed: reputation changes a
+        decision only then."""
+        return self.robust_agg != "none" or self.cos_screen is not None
+
+    def _cos_tau(self, client: str) -> float:
+        """The cosine-shift threshold for this client: ``cos_screen``
+        sharpened toward 1 as the client's reputation decays."""
+        if self.cos_screen is None:
+            return -1.0
+        rep = self._reputation.get(client, 1.0)
+        return 1.0 - rep * (1.0 - self.cos_screen)
 
     def _quarantine(self, peer: str) -> None:
         """Expel a repeatedly failing peer for ``quarantine_ticks`` ticks."""
@@ -658,7 +783,20 @@ class FederationScheduler:
 
     def _next_offer(self, name: str) -> Optional[str]:
         """Front-of-queue client for this owner; offers from quarantined
-        clients are deferred to their release, not dropped."""
+        clients are deferred to their release, not dropped. With the
+        defenses armed and some reputation below 1, the best-reputed queued
+        client is served first (FIFO among ties)."""
+        if self._defended and self._reputation and self.queue[name]:
+            best = max(self._reputation.get(c, 1.0) for c in self.queue[name])
+            for client in self.queue[name]:
+                if self._reputation.get(client, 1.0) == best:
+                    self.queue[name].remove(client)
+                    self._queued[name].discard(client)
+                    if self.state.get(client) is NodeState.QUARANTINED:
+                        release = self._quarantine_until.get(client, self._tick + 1)
+                        self._deferred.append((release, name, client))
+                        return self._next_offer(name)
+                    return client
         while self.queue[name]:
             client = self._pop_offer(name)
             if self.state.get(client) is NodeState.QUARANTINED:
@@ -697,6 +835,24 @@ class FederationScheduler:
         self._injector = FaultInjector(plan)
         self._injector_src = src
         return self._injector
+
+    def _adversary_for(self, tick_adversary=None) -> Optional[Adversary]:
+        """Resolve the adversary (call-site argument > constructor > env) to
+        a cached ``Adversary``, or ``None`` when off. The cache keeps the
+        replay cache across ``run()`` calls."""
+        src = resolve_tick_adversary(
+            tick_adversary if tick_adversary is not None else self.tick_adversary)
+        if src is None:
+            self._adversary = self._adversary_src = None
+            return None
+        if isinstance(src, Adversary):
+            self._adversary = self._adversary_src = src
+            return src
+        if self._adversary is not None and self._adversary_src == src:
+            return self._adversary
+        self._adversary = resolve_adversary(src)
+        self._adversary_src = src
+        return self._adversary
 
     def _pair_screen_idx(self, client: str, host: str) -> np.ndarray:
         """The client entity rows a (client, host) handshake reads: the
@@ -738,16 +894,19 @@ class FederationScheduler:
                 continue
             client = self._next_offer(name)
             if client is not None:
-                entries.append(TickEntry(
-                    name, "ppat", client,
-                    client_view=self.trainers[client].snapshot(),
-                    view_version=self._view_version.get(client, 0),
-                ))
+                entries.append(self._handshake_entry(name, client))
             elif self_train:
                 entries.append(TickEntry(name, "self-train"))
             else:
                 self.state[name] = NodeState.SLEEP
         return entries
+
+    def _handshake_entry(self, host: str, client: str) -> TickEntry:
+        """A handshake entry with the client's tables frozen now."""
+        return TickEntry(host, "ppat", client,
+                         client_view=self.trainers[client].snapshot(),
+                         view_version=self._view_version.get(client, 0),
+                         sim_wait=self._publish_sim.get(client, 0.0))
 
     def run(
         self,
@@ -760,27 +919,37 @@ class FederationScheduler:
         tick_faults=None,
         tick_adversary=None,
         tick_sync: Optional[str] = None,
+        staleness_bound: Optional[int] = None,
     ) -> Dict[str, float]:
-        """Barrier ticks until quiescence (all queues empty, no improvement,
-        nothing deferred or quarantined) or ``max_ticks``. The call-site
-        knobs override the constructor's for this run; ``tick_faults`` (a
-        spec / ``FaultPlan`` / ``FaultInjector``) arms the fault layer.
+        """Ticks (barrier) or passes (stream) until quiescence (all queues
+        empty, no improvement, nothing deferred or quarantined) or
+        ``max_ticks``. The call-site knobs override the constructor's for
+        this run; ``tick_faults`` (a spec / ``FaultPlan`` /
+        ``FaultInjector``) arms the fault layer, ``tick_adversary`` (a spec
+        / ``AdversaryPlan`` / ``Adversary``) the adversary, and
+        ``staleness_bound`` gates streamed views.
 
         One failing entry never aborts its tick (``_entry_failed``); an
         unexpected exception puts the plan's un-executed remainder back into
         the queues before it propagates."""
         resolve_tick_impl(tick_impl if tick_impl is not None else self.tick_impl)
-        resolve_tick_sync(tick_sync if tick_sync is not None else self.tick_sync)
+        sync = resolve_tick_sync(tick_sync if tick_sync is not None else self.tick_sync)
         refuse_tick_layers(
             tick_placement if tick_placement is not None else self.tick_placement,
             tick_residency if tick_residency is not None else self.tick_residency,
-            tick_adversary if tick_adversary is not None else self.tick_adversary,
         )
+        bound = self.staleness_bound if staleness_bound is None else int(staleness_bound)
+        if bound < 0:
+            raise ValueError(f"staleness_bound={bound} must be >= 0")
         injector = self._fault_injector(tick_faults)
+        adversary = self._adversary_for(tick_adversary)
+        if sync == "stream":
+            return self._run_stream(max_ticks, self_train=self_train, injector=injector,
+                                    adversary=adversary, bound=bound)
         for _ in range(max_ticks):
             self._tick += 1
             plan = self.plan_tick(self_train=self_train)
-            events = self._run_serial(plan, injector, self.tick_deadline)
+            events = self._run_serial(plan, injector, adversary, self.tick_deadline)
             self._stamp_events(plan, events, level=0)
             self._sim_account_barrier(events)
             if (
@@ -818,6 +987,20 @@ class FederationScheduler:
             self._owner_free[h] = fin
         for ev in events:
             ev.sim_finish = fin
+            if ev.accepted:
+                self._publish_sim[ev.host] = fin
+
+    def _sim_account_stream(self, entries: List[TickEntry],
+                            events: List[FederationEvent]) -> None:
+        """Streamed time model (reporting only): an entry starts once its
+        host is free and the client version it read was published."""
+        for e, ev in zip(entries, events):
+            start = max(self._owner_free.get(ev.host, 0.0), e.sim_wait)
+            fin = start + max(ev.seconds, 0.0)
+            self._owner_free[ev.host] = fin
+            ev.sim_finish = fin
+            if ev.accepted:
+                self._publish_sim[ev.host] = fin
 
     def sim_times(self) -> Dict[str, float]:
         """Per-owner simulated completion times (reporting only)."""
@@ -827,17 +1010,125 @@ class FederationScheduler:
         """Simulated federation makespan: when the last owner goes idle."""
         return max(self._owner_free.values(), default=0.0)
 
+    # ------------------------------------------------- streaming scheduler
+    @staticmethod
+    def _cut_levels(plan: List[TickEntry]) -> List[List[TickEntry]]:
+        """Cut a pass's plan into dependency levels: an entry lands one
+        level past the last earlier entry sharing a participant (host or
+        client) with it, so overlapping entries serialize in plan order and
+        disjoint ones share a level."""
+        levels: List[List[TickEntry]] = []
+        last: Dict[str, int] = {}
+        for e in plan:
+            parts = {e.host} if e.client is None else {e.host, e.client}
+            k = max((last[p] + 1 for p in parts if p in last), default=0)
+            while len(levels) <= k:
+                levels.append([])
+            levels[k].append(e)
+            for p in parts:
+                last[p] = k
+        return levels
+
+    def _assign_entry_draws(self, entries: List[TickEntry],
+                            injector: Optional[FaultInjector]) -> None:
+        """Draw the PPAT inputs of a streamed pass's handshakes in plan
+        order, so the levels consume the draw source in the order the
+        barrier would. Entries whose fault kills them before any draw
+        (crash, drop, corrupt) are skipped; the draw here reads the
+        stateless plan, so the injector's counts stay single."""
+        for e in entries:
+            if e.kind != "ppat" or e.ppat_draws is not None:
+                continue
+            if injector is not None:
+                f = injector.plan.draw(self._tick, e.host, e.client)
+                if f is not None and f.kind in ("crash", "drop", "corrupt"):
+                    continue
+            e.ppat_draws = self._draw_ppat(e.host, e.client)
+
+    def _run_stream(self, max_ticks: int, *, self_train: bool,
+                    injector: Optional[FaultInjector], adversary: Optional[Adversary],
+                    bound: int) -> Dict[str, float]:
+        """Dependency-level streaming passes (``tick_sync="stream"``).
+
+        Each pass plans like a barrier tick, cuts the plan into levels and
+        runs them in order through ``_run_serial``. At each level a
+        handshake whose frozen view is more than ``bound`` versions behind
+        its client emits a ``fault="stale"`` audit event and re-offers: a
+        fresh view is frozen and runs in a trailing level of this pass;
+        stale again, the offer goes back to the front of the host's queue
+        for the next pass. Stale-gated entries take no fault draw, and the
+        PPAT inputs they drew go unused."""
+        for _ in range(max_ticks):
+            self._tick += 1
+            plan = self.plan_tick(self_train=self_train)
+            self._assign_entry_draws(plan, injector)
+            pending = [list(lv) for lv in self._cut_levels(plan)]
+            pass_events: List[FederationEvent] = []
+            reoffered: set = set()
+            lvl = 0
+            while pending:
+                live: List[TickEntry] = []
+                reoffer_level: List[TickEntry] = []
+                for e in pending.pop(0):
+                    if (e.kind == "ppat"
+                            and self._view_version.get(e.client, 0) - e.view_version > bound):
+                        before = self.best_score.get(e.host, float("nan"))
+                        ev = FederationEvent(self._tick, e.host, e.client, "ppat",
+                                             before, before, False, fault="stale")
+                        self.events.append(ev)
+                        self._stamp_events([e], [ev], level=lvl)
+                        pass_events.append(ev)
+                        if (e.host, e.client) not in reoffered:
+                            reoffered.add((e.host, e.client))
+                            reoffer_level.append(self._handshake_entry(e.host, e.client))
+                        elif e.client not in self._queued[e.host]:
+                            self.queue[e.host].appendleft(e.client)
+                            self._queued[e.host].add(e.client)
+                        continue
+                    live.append(e)
+                if reoffer_level:
+                    # re-frozen views run after everything already scheduled;
+                    # their inputs are drawn now, in level order
+                    self._assign_entry_draws(reoffer_level, injector)
+                    pending.append(reoffer_level)
+                if live:
+                    try:
+                        events = self._run_serial(live, injector, adversary, self.tick_deadline)
+                    except Exception:
+                        done = {ev.host for ev in self.events
+                                if ev.tick == self._tick and ev.fault != "stale"}
+                        self._unwind_plan(live + [e for lv in pending for e in lv], done)
+                        raise
+                    self._stamp_events(live, events, level=lvl)
+                    self._sim_account_stream(live, events)
+                    pass_events.extend(events)
+                lvl += 1
+            if (
+                not any(ev.accepted for ev in pass_events)
+                and all(not q for q in self.queue.values())
+                and not self._deferred
+                and not self._quarantine_until
+            ):
+                break
+        return dict(self.best_score)
+
     def _run_serial(self, plan: List[TickEntry], injector: Optional[FaultInjector],
+                    adversary: Optional[Adversary],
                     deadline: Optional[float]) -> List[FederationEvent]:
-        """One tick's entries in plan order, each failure isolated. Order per
-        entry: frozen view → fault corruption → receiver screen, all before
-        any PPAT draw."""
+        """A tick's (or a level's) entries in order, each failure isolated.
+        Order per entry: frozen view → adversary tamper → fault corruption →
+        receiver screen, all before any PPAT draw."""
         events: List[FederationEvent] = []
         done: set = set()
         screen = injector.norm_bound if injector is not None else None
         for e in plan:
             fault = injector.draw(self._tick, e.host, e.client) if injector is not None else None
+            attack = (adversary.draw(self._tick, e.host, e.client)
+                      if adversary is not None and e.kind == "ppat" else None)
             view = e.client_view
+            if attack is not None:
+                view = adversary.tamper_view(view, attack, self._tick, e.host, e.client,
+                                             rows=self._pair_screen_idx(e.client, e.host))
             if fault is not None and fault.kind == "corrupt" and e.kind == "ppat":
                 view = injector.corrupt_view(view, fault, self._tick, e.host)
             try:
@@ -845,7 +1136,8 @@ class FederationScheduler:
                     if injector is not None:
                         self.screen_incoming(e.host, e.client, view, bound=screen)
                     ev = self.federate_once(e.host, e.client, client_view=view, fault=fault,
-                                            screen=screen, deadline=deadline)
+                                            attack=attack, screen=screen, deadline=deadline,
+                                            ppat_draws=e.ppat_draws)
                 else:
                     ev = self.self_train_once(e.host, fault=fault, deadline=deadline)
             except FaultError as fe:
@@ -861,6 +1153,6 @@ class FederationScheduler:
                 raise
             done.add(e.host)
             events.append(ev)
-            if ev.fault == "straggle":
-                self._entry_failed(e.host, e.client, "straggle", emit=False)
+            if ev.fault in ("straggle", "poison"):
+                self._entry_failed(e.host, e.client, ev.fault, emit=False)
         return events

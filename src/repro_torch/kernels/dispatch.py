@@ -11,15 +11,15 @@ package's environment variables (``REPRO_SERVE_IMPL``,
 ``REPRO_SERVE_REPLICAS``, ``REPRO_SERVE_FAULTS``), and the training step
 keeps ``REPRO_TRAIN_IMPL`` (``resolve_train_impl``).
 
-The federation knobs keep the JAX package's ``REPRO_TICK_*`` variables,
-but the port has only the serial tick engine (the JAX package's
-``reference``) and the lockstep ``barrier`` discipline. So ``None``/``auto``
-resolve to those two: the port's default engine is the serial one, where
-the JAX package's default is its batched engine, which that package
-documents as bit-identical to the serial one. Everything not ported —
-``batched`` ticks, ``stream`` scheduling, a tick placement or residency,
-an adversary — raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item; nothing falls back quietly.
+The federation knobs keep the JAX package's ``REPRO_TICK_*`` variables.
+The port has only the serial tick engine (the JAX package's ``reference``),
+so ``None``/``auto`` resolve to it, where the JAX package's default is its
+batched engine, which that package documents as bit-identical to the serial
+one. Both scheduling disciplines (``barrier`` and ``stream``), the fault
+layer and the adversary resolve as in the JAX package. What is not ported —
+``batched`` ticks, a tick placement or residency other than ``auto`` —
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item; nothing falls
+back quietly.
 """
 from __future__ import annotations
 
@@ -147,9 +147,8 @@ def resolve_train_impl(impl: Optional[str] = None, family: str = "transe",
     return impl
 
 
-#: where each federation layer the port lacks is queued (``ROADMAP.md``)
-_TICK_ENGINE_ITEM = "ROADMAP.md Queue 1 item 3 (streaming and the batched tick engine)"
-_ADVERSARY_ITEM = "ROADMAP.md Queue 1 item 2 (the adversary, attacks and defenses)"
+#: where the federation layers the port lacks are queued (``ROADMAP.md``)
+_TICK_ENGINE_ITEM = "ROADMAP.md Queue 1 item 3 (the batched tick engine and its placement)"
 
 
 def _off(value) -> bool:
@@ -173,34 +172,38 @@ def resolve_tick_impl(impl: Optional[str] = None) -> str:
 
 
 def resolve_tick_sync(sync: Optional[str] = None) -> str:
-    """The scheduling discipline: always ``barrier``, lockstep ticks.
-    ``REPRO_TICK_SYNC`` overrides; ``stream``/``streamed`` raise (not
-    ported)."""
+    """The scheduling discipline: ``barrier`` (the default: lockstep ticks)
+    or ``stream`` (dependency-level streaming passes with a bounded-staleness
+    gate; ``streamed`` is an alias). ``REPRO_TICK_SYNC`` overrides."""
     if sync is None:
         sync = os.environ.get("REPRO_TICK_SYNC", "").strip().lower() or None
     if sync is None or sync == "auto":
-        return "barrier"
-    if sync in ("stream", "streamed"):
-        raise NotImplementedError(
-            f"tick_sync={sync!r} is not ported yet: {_TICK_ENGINE_ITEM}")
-    if sync != "barrier":
+        sync = "barrier"
+    if sync == "streamed":
+        sync = "stream"
+    if sync not in ("barrier", "stream"):
         raise ValueError(f"unknown tick sync {sync!r} (auto|barrier|stream)")
     return sync
 
 
-def refuse_tick_layers(placement=None, residency=None, adversary=None) -> None:
-    """Raise ``NotImplementedError`` for a federation layer the port lacks,
-    given as an argument or through ``REPRO_TICK_PLACEMENT``,
-    ``REPRO_TICK_RESIDENCY`` or ``REPRO_TICK_ADVERSARY``: a tick placement
-    or residency other than ``auto`` (they place the batched engine's
-    programs), or any adversary."""
-    for name, value, item in (("tick_placement", placement, _TICK_ENGINE_ITEM),
-                              ("tick_residency", residency, _TICK_ENGINE_ITEM),
-                              ("tick_adversary", adversary, _ADVERSARY_ITEM)):
+def refuse_tick_layers(placement=None, residency=None) -> None:
+    """Raise ``NotImplementedError`` for a tick placement or residency other
+    than ``auto``, given as an argument or through ``REPRO_TICK_PLACEMENT`` /
+    ``REPRO_TICK_RESIDENCY``: they place the batched engine's programs,
+    which the port lacks."""
+    for name, value in (("tick_placement", placement), ("tick_residency", residency)):
         if value is None:
             value = os.environ.get("REPRO_" + name.upper(), "").strip() or None
         if not _off(value):
-            raise NotImplementedError(f"{name}={value!r} is not ported yet: {item}")
+            raise NotImplementedError(f"{name}={value!r} is not ported yet: {_TICK_ENGINE_ITEM}")
+
+
+def resolve_tick_adversary(spec=None):
+    """The federation adversarial-peer layer: ``None`` (off, the default) or
+    an adversary description the scheduler hands to ``AdversaryPlan.parse``.
+    An already-built ``AdversaryPlan``/``Adversary`` passes through; ``None``
+    consults ``REPRO_TICK_ADVERSARY``; off-values resolve to ``None``."""
+    return _fault_spec(spec, "REPRO_TICK_ADVERSARY")
 
 
 def resolve_tick_faults(spec=None):

@@ -3,6 +3,8 @@ package: seeded inputs made with numpy, dyadic tables on which fp32 sums
 are exact in any order, and the near-tie rule for rank counts."""
 import jax
 import numpy as np
+import pytest
+import torch
 
 from repro.kge.models import KGEModel as JaxKGEModel
 from repro.kge.models import init_kge as jax_init_kge
@@ -113,7 +115,22 @@ class JaxSchedulerDraws:
         self._key = jax.random.PRNGKey(seed + 101)
         self._engine = {n: jax.random.PRNGKey(seed + i + 7919) for i, n in enumerate(names)}
 
+    def state_dict(self):
+        """Both key streams as uint32 arrays, for the port's checkpoints."""
+        return {"key": np.asarray(self._key, np.uint32),
+                "engine": {n: np.asarray(k, np.uint32) for n, k in self._engine.items()}}
+
+    def load_state_dict(self, state):
+        import jax.numpy as jnp
+
+        self._key = jnp.asarray(np.asarray(state["key"]), jnp.uint32)
+        self._engine = {n: jnp.asarray(np.asarray(k), jnp.uint32)
+                        for n, k in state["engine"].items()}
+
     def ppat(self, host, client, n_x: int, n_y: int):
+        """Called once per handshake that draws, in the order the JAX
+        scheduler splits its PPAT key: at run time in a barrier tick, in
+        plan order when a streamed pass (or its re-offer level) is planned."""
         import torch
 
         from repro_torch.core.ppat import PPATDraws, host_params_from_numpy
@@ -126,3 +143,106 @@ class JaxSchedulerDraws:
     def train(self, owner, epochs: int, n_pad: int, nb: int, batch: int, num_entities: int):
         self._engine[owner], sub = jax.random.split(self._engine[owner])
         return jax_draws(sub, epochs, n_pad, nb, batch, num_entities)
+
+
+# ------------------------------------------------ scheduler-level parity
+#: the universe of ``tests/test_federation.py`` and ``tests/test_adversary.py``
+STATS = [("A", 12, 90000, 300000), ("B", 10, 70000, 240000), ("C", 8, 60000, 200000)]
+ALIGNS = [("A", "B", 30000), ("B", "C", 20000), ("A", "C", 18000)]
+EVENT_FIELDS = ("tick", "host", "client", "kind", "accepted", "fault", "attack", "level",
+                "owner_clock", "view_version")
+
+
+def make_universes(seed=1, stats=STATS, aligns=ALIGNS):
+    """(JAX universe, port universe) from the same seed at scale 1/500."""
+    from repro.kge.data import synthesize_universe as jax_universe
+    from repro_torch.kge.data import synthesize_universe
+
+    return (jax_universe(seed=seed, scale=1 / 500, kg_stats=stats, alignments=aligns),
+            synthesize_universe(seed=seed, scale=1 / 500, kg_stats=stats, alignments=aligns))
+
+
+def _pair(universes, *, dim=16, steps=12, faults=None, **kw):
+    """(JAX scheduler, port scheduler) on the same tables and draws: the JAX
+    one with its serial engine, the port's from ``JaxSchedulerDraws``.
+    ``faults`` is ``(FaultPlan kwargs, table {(tick, host): Fault kwargs})``
+    and builds one injector for each; every other keyword (an adversary
+    spec, the defenses, ...) goes to both."""
+    from repro.core.faults import Fault as JFault
+    from repro.core.faults import FaultInjector as JInjector
+    from repro.core.faults import FaultPlan as JPlan
+    from repro.core.federation import FederationScheduler as JaxScheduler
+    from repro.core.ppat import PPATConfig as JaxPPATConfig
+    from repro_torch.core import faults as tf
+    from repro_torch.core.federation import FederationScheduler
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.models import params_from_numpy
+
+    jkgs, tkgs = universes
+    kw = {"local_epochs": 2, "update_epochs": 1, "seed": 0, **kw}
+    jcfg = JaxPPATConfig(steps=steps, seed=0)
+    jkw, tkw = dict(kw), dict(kw)
+    if faults is not None:
+        plan, table = faults
+        jkw["tick_faults"] = JInjector(JPlan(**plan, table={
+            k: JFault(**v) for k, v in table.items()} if table else None))
+        tkw["tick_faults"] = tf.FaultInjector(tf.FaultPlan(**plan, table={
+            k: tf.Fault(**v) for k, v in table.items()} if table else None))
+    j = JaxScheduler(jkgs, dim=dim, ppat_cfg=jcfg, tick_impl="reference", **jkw)
+    t = FederationScheduler(tkgs, dim=dim, ppat_cfg=PPATConfig(steps=steps, seed=0),
+                            device="cpu", draws=JaxSchedulerDraws(list(tkgs), 0, jcfg, dim),
+                            **tkw)
+    for n, tr in t.trainers.items():
+        tr.params = params_from_numpy(
+            {k: np.asarray(v) for k, v in j.trainers[n].params.items()}, "cpu")
+    return j, t
+
+
+def _score_tol(t, name):
+    """One scoring triple: 1/|valid| for accuracy, 1/(2·n) for Hit@10."""
+    n = len(t.kgs[name].valid)
+    return 1 / (2 * min(n, t.score_max_test)) if t.score_metric == "hit10" else 1 / n
+
+
+def assert_same_events(j_events, t_events, t):
+    """Events equal field for field (``EVENT_FIELDS``), ε bit for bit, the
+    scores within one scoring triple."""
+    assert len(j_events) == len(t_events)
+    for a, b in zip(j_events, t_events):
+        assert [getattr(b, f) for f in EVENT_FIELDS] == [getattr(a, f) for f in EVENT_FIELDS]
+        assert repr(b.epsilon) == repr(a.epsilon)  # bit-equal, NaN for non-handshakes
+        for f in ("score_before", "score_after"):
+            assert abs(getattr(b, f) - getattr(a, f)) <= _score_tol(t, b.host), (f, a, b)
+
+
+def assert_same(j, t):
+    """The events, ε, queues, states, failure ledgers and reputation
+    exactly (ε bit for bit), the scores within one scoring triple and the
+    tables within atol 1e-5, for the whole history so far."""
+    assert_same_events(j.events, t.events, t)
+    assert t.epsilons == j.epsilons
+    assert t.accountant.epsilon() == j.accountant.epsilon()
+    assert {n: list(q) for n, q in t.queue.items()} == {n: list(q) for n, q in j.queue.items()}
+    assert t._queued == j._queued
+    assert {n: s.value for n, s in t.state.items()} == {n: s.value for n, s in j.state.items()}
+    for ledger in ("_retries", "_deferred", "_quarantine_until", "_peer_failures",
+                   "_reputation", "_view_version", "_owner_clock", "_tick"):
+        assert getattr(t, ledger) == getattr(j, ledger), ledger
+    for n in t.trainers:
+        for k, v in j.trainers[n].params.items():
+            np.testing.assert_allclose(t.trainers[n].params[k].numpy(), np.asarray(v),
+                                       rtol=0, atol=1e-5, err_msg=f"{n}.{k}")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Scheduler-level parity tests run thousands of small PyTorch ops. With
+    several test workers on one machine, each op's intra-op thread team
+    spins while it waits and the workers' teams starve each other (a run of
+    these files that takes ~90 s on one thread each did not finish in 20
+    minutes on eight); one thread per worker keeps them apart. Import this
+    fixture into a test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

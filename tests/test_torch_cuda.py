@@ -661,6 +661,159 @@ def test_scheduler_on_the_card_equals_the_cpu(cuda_dev, monkeypatch, metric):
             torch.testing.assert_close(a.trainers[n].params[k].cpu(), v, atol=1e-5, rtol=0)
 
 
+#: the JAX package's resume-test storm (``tests/test_adversary.py``), defended
+STORM = dict(tick_adversary="drift=0.4,replay=0.6,seed=2,strength=0.9,frac=0.5",
+             robust_agg="median", cos_screen=0.3)
+STORM_KEYS = ("tick", "host", "client", "kind", "accepted", "fault", "attack", "level",
+              "owner_clock", "view_version")
+
+
+def _storm_fed(dev, sync="barrier", draws=True, **kw):
+    """The small universe's scheduler under the storm on ``dev``, from
+    fixed start tables (and a ``GeneratorDraws`` of seed 47)."""
+    from repro_torch.core.federation import FederationScheduler, GeneratorDraws
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.data import synthesize_universe
+
+    uni = synthesize_universe(seed=1, scale=1 / 500)
+    kgs = {n: uni[n] for n in ("Dbpedia", "Yago", "Geonames")}
+    cfg = PPATConfig(steps=12, seed=0)
+    s = FederationScheduler(kgs, dim=16, ppat_cfg=cfg, local_epochs=2, update_epochs=1, seed=0,
+                            device=dev, draws=GeneratorDraws(47, cfg, 16) if draws else None,
+                            tick_sync=sync, staleness_bound=0, **STORM, **kw)
+    g = torch.Generator().manual_seed(53)
+    for tr in s.trainers.values():
+        tr.params = {k: (torch.rand(v.shape, generator=g) - 0.5).to(dev)
+                     for k, v in tr.params.items()}
+    return s
+
+
+def _storm_events(s, after=0):
+    return [[getattr(e, k) for k in STORM_KEYS] for e in s.events if e.tick > after]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["barrier", "stream"])
+def test_storm_on_the_card_equals_the_cpu(cuda_dev, monkeypatch, sync):
+    """The defended storm (barrier, and streamed with bound 0) on the card
+    and on the CPU under ``REPRO_TRAIN_IMPL=fused`` from the same draws:
+    equal events (attack, fault, level), reputation and epsilon bit for
+    bit, tables within 1e-5."""
+    monkeypatch.setenv("REPRO_TRAIN_IMPL", "fused")
+    runs = []
+    for dev in (cuda_dev, torch.device("cpu")):
+        s = _storm_fed(dev, sync)
+        s.initial_training()
+        s.run(max_ticks=3)
+        runs.append(s)
+    a, b = runs
+    assert _storm_events(a) == _storm_events(b)
+    assert any(e.attack for e in a.events)
+    assert a._reputation == b._reputation
+    assert [repr(e.epsilon) for e in a.events] == [repr(e.epsilon) for e in b.events]
+    for n in a.trainers:
+        for k, v in b.trainers[n].params.items():
+            torch.testing.assert_close(a.trainers[n].params[k].cpu(), v, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_storm_resume_on_the_card_is_bit_equal(cuda_dev, tmp_path):
+    """A storm cut after two ticks and resumed on the card, from the
+    scheduler's own generators (their CUDA states ride the checkpoint):
+    the uninterrupted run's events and tables bit for bit."""
+    from repro_torch.checkpoint import restore_scheduler, save_scheduler
+
+    path = str(tmp_path / "storm.npz")
+    a = _storm_fed(cuda_dev, draws=False)
+    a.initial_training()
+    a.run(max_ticks=2)
+    save_scheduler(path, a)
+    a.run(max_ticks=2)
+    b = _storm_fed(cuda_dev, draws=False)
+    restore_scheduler(path, b)
+    b.run(max_ticks=2)
+    assert _storm_events(a, 2) == _storm_events(b)
+    assert a._reputation == b._reputation and a.epsilons == b.epsilons
+    for n in a.trainers:
+        for k, v in a.trainers[n].params.items():
+            assert torch.equal(v, b.trainers[n].params[k]), f"{n}.{k}"
+
+
+@pytest.mark.cuda
+def test_card_checkpoint_restores_into_a_cpu_scheduler(cuda_dev, monkeypatch, tmp_path):
+    """Saved on the card, restored into a CPU scheduler with the same
+    ``GeneratorDraws``: the next tick's events equal the card's; without a
+    draw source the card's generator states cannot load and it raises."""
+    from repro_torch.checkpoint import restore_scheduler, save_scheduler
+
+    monkeypatch.setenv("REPRO_TRAIN_IMPL", "fused")
+    path = str(tmp_path / "card.npz")
+    a = _storm_fed(cuda_dev)
+    a.initial_training()
+    a.run(max_ticks=2)
+    save_scheduler(path, a)
+    a.run(max_ticks=1)
+    c = _storm_fed(torch.device("cpu"))
+    restore_scheduler(path, c)
+    c.run(max_ticks=1)
+    assert _storm_events(c) == _storm_events(a, 2) and _storm_events(c)
+    assert c._reputation == a._reputation
+    b = _storm_fed(cuda_dev, draws=False)
+    b.initial_training()
+    save_scheduler(path, b)
+    with pytest.raises(ValueError, match="cuda generator states"):
+        restore_scheduler(path, _storm_fed(torch.device("cpu"), draws=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "clip", "median", "trimmed"])
+def test_robust_rows_on_the_card_equal_the_cpu(cuda_dev, mode):
+    """``robust_rows`` at the handshake's padded shape on the card and on
+    the CPU: ``median`` (and ``none``) bit-equal, ``clip`` and ``trimmed``
+    within 1e-6, the mean cosine within 1e-6."""
+    from repro_torch.core.aggregation import robust_rows
+
+    g = torch.Generator().manual_seed(3)
+    cur = torch.randn(4096, 100, generator=g)
+    synth = cur + 0.1 * torch.randn(4096, 100, generator=g)
+    synth[5] += 40.0
+    want, wcos = robust_rows(cur, synth, 4000, mode=mode, want_cos=True)
+    got, gcos = robust_rows(cur.to(cuda_dev), synth.to(cuda_dev), 4000, mode=mode, want_cos=True)
+    if mode in ("none", "median"):
+        assert torch.equal(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+    assert abs(float(gcos) - float(wcos)) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_attacks_on_the_card_equal_the_cpu(cuda_dev):
+    """The leakage attacks on the card: AUC exactly, the rest within 1e-9."""
+    from repro_torch.core import attacks
+
+    rng = np.random.default_rng(0)
+    ent = rng.normal(size=(60, 8))
+    members = np.array([(i, i % 3, i + 1) for i in range(0, 40, 2)])
+    nonmembers = rng.integers(0, 60, size=(25, 3)) % [60, 3, 60]
+    rows = {i: ent[i] for i in range(60) if i % 9}
+    want = attacks.membership_inference(rows, members, nonmembers, device="cpu")
+    got = attacks.membership_inference({k: torch.tensor(v, device=cuda_dev)
+                                        for k, v in rows.items()}, members, nonmembers)
+    assert got["n_member"] == want["n_member"] and got["n_nonmember"] == want["n_nonmember"]
+    assert abs(got["auc"] - want["auc"]) <= 1e-9
+    pos, neg = rng.integers(0, 6, 80).astype(float), rng.normal(size=50)
+    assert attacks.auc(torch.tensor(pos, device=cuda_dev), torch.tensor(neg)) == \
+        attacks.auc(pos, neg, device="cpu")
+    true = rng.normal(size=(300, 16))
+    rel = true @ np.linalg.qr(rng.normal(size=(16, 16)))[0] + 0.3 * rng.normal(size=(300, 16))
+    w = attacks.reconstruction_attack(rel, true, device="cpu")
+    c = attacks.reconstruction_attack(torch.tensor(rel, device=cuda_dev), true)
+    assert abs(c["cosine"] - w["cosine"]) <= 1e-9 and abs(c["mse"] - w["mse"]) <= 1e-9
+    d = attacks.reconstruction_attack(rel, true)  # arrays run on the current card
+    assert abs(d["cosine"] - w["cosine"]) <= 1e-9 and abs(d["mse"] - w["mse"]) <= 1e-9
+    assert attacks.membership_inference(rows, members, nonmembers)["auc"] == got["auc"]
+
+
 # ------------------------------------------------------- LM serving kernels
 FLASH_CASES = [
     # b, h, kv, s, dh, causal, window

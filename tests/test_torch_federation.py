@@ -29,83 +29,29 @@ import re
 import numpy as np
 import pytest
 import torch
-from _torch_parity import JaxSchedulerDraws
+from _torch_parity import (  # noqa: F401 (one_torch_thread)
+    JaxSchedulerDraws,
+    _pair,
+    _score_tol,
+    assert_same,
+    make_universes,
+    one_torch_thread,
+)
 
-from repro.core.faults import Fault as JFault
-from repro.core.faults import FaultInjector as JInjector
-from repro.core.faults import FaultPlan as JPlan
 from repro.core.federation import FederationScheduler as JaxScheduler
 from repro.core.ppat import PPATConfig as JaxPPATConfig
 from repro.kge.data import synthesize_universe as jax_universe
-from repro_torch.core import faults as tf
 from repro_torch.core.federation import FederationScheduler, NodeState
 from repro_torch.core.ppat import PPATConfig
-from repro_torch.kge.data import synthesize_universe
 from repro_torch.kge.models import params_from_numpy
 from repro_torch.serving import KGECandidateRanker, KGEServingTier
 
-STATS = [("A", 12, 90000, 300000), ("B", 10, 70000, 240000), ("C", 8, 60000, 200000)]
-ALIGNS = [("A", "B", 30000), ("B", "C", 20000), ("A", "C", 18000)]
-EVENT_FIELDS = ("tick", "host", "client", "kind", "accepted", "fault", "level",
-                "owner_clock", "view_version")
 CPU = torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
 def universes():
-    return (jax_universe(seed=1, scale=1 / 500, kg_stats=STATS, alignments=ALIGNS),
-            synthesize_universe(seed=1, scale=1 / 500, kg_stats=STATS, alignments=ALIGNS))
-
-
-def _pair(universes, *, dim=16, steps=12, faults=None, **kw):
-    """(JAX scheduler, port scheduler) on the same tables and draws;
-    ``faults`` is ``(FaultPlan kwargs, table {(tick, host): Fault kwargs})``
-    and builds one injector for each."""
-    jkgs, tkgs = universes
-    kw = {"local_epochs": 2, "update_epochs": 1, "seed": 0, **kw}
-    jcfg = JaxPPATConfig(steps=steps, seed=0)
-    jkw, tkw = dict(kw), dict(kw)
-    if faults is not None:
-        plan, table = faults
-        jkw["tick_faults"] = JInjector(JPlan(**plan, table={
-            k: JFault(**v) for k, v in table.items()} if table else None))
-        tkw["tick_faults"] = tf.FaultInjector(tf.FaultPlan(**plan, table={
-            k: tf.Fault(**v) for k, v in table.items()} if table else None))
-    j = JaxScheduler(jkgs, dim=dim, ppat_cfg=jcfg, tick_impl="reference", **jkw)
-    t = FederationScheduler(tkgs, dim=dim, ppat_cfg=PPATConfig(steps=steps, seed=0),
-                            device="cpu", draws=JaxSchedulerDraws(list(tkgs), 0, jcfg, dim),
-                            **tkw)
-    for n, tr in t.trainers.items():
-        tr.params = params_from_numpy(
-            {k: np.asarray(v) for k, v in j.trainers[n].params.items()}, "cpu")
-    return j, t
-
-
-def _score_tol(t, name):
-    n = len(t.kgs[name].valid)
-    return 1 / (2 * min(n, t.score_max_test)) if t.score_metric == "hit10" else 1 / n
-
-
-def assert_same(j, t):
-    """Everything the module docstring lists, for the whole history so far."""
-    assert len(j.events) == len(t.events)
-    for a, b in zip(j.events, t.events):
-        assert [getattr(b, f) for f in EVENT_FIELDS] == [getattr(a, f) for f in EVENT_FIELDS]
-        assert repr(b.epsilon) == repr(a.epsilon)  # bit-equal, NaN for non-handshakes
-        for f in ("score_before", "score_after"):
-            assert abs(getattr(b, f) - getattr(a, f)) <= _score_tol(t, b.host), (f, a, b)
-    assert t.epsilons == j.epsilons
-    assert t.accountant.epsilon() == j.accountant.epsilon()
-    assert {n: list(q) for n, q in t.queue.items()} == {n: list(q) for n, q in j.queue.items()}
-    assert t._queued == j._queued
-    assert {n: s.value for n, s in t.state.items()} == {n: s.value for n, s in j.state.items()}
-    for ledger in ("_retries", "_deferred", "_quarantine_until", "_peer_failures",
-                   "_reputation", "_view_version", "_owner_clock", "_tick"):
-        assert getattr(t, ledger) == getattr(j, ledger), ledger
-    for n in t.trainers:
-        for k, v in j.trainers[n].params.items():
-            np.testing.assert_allclose(t.trainers[n].params[k].numpy(), np.asarray(v),
-                                       rtol=0, atol=1e-5, err_msg=f"{n}.{k}")
+    return make_universes()
 
 
 def _bit_equal(params, snap):
@@ -329,16 +275,10 @@ def test_tier_follows_the_scheduler(universes):
 
 @pytest.mark.parametrize("kw,env,where", [
     ({"tick_impl": "batched"}, None, "Queue 1 item 3"),
-    ({"tick_sync": "stream"}, None, "Queue 1 item 3"),
     ({"tick_placement": "sharded"}, None, "Queue 1 item 3"),
     ({"tick_residency": "resident"}, None, "Queue 1 item 3"),
-    ({"tick_adversary": "drift=0.5"}, None, "Queue 1 item 2"),
-    ({"robust_agg": "median"}, None, "Queue 1 item 2"),
-    ({"cos_screen": 0.5}, None, "Queue 1 item 2"),
     ({}, ("REPRO_TICK_IMPL", "batched"), "Queue 1 item 3"),
-    ({}, ("REPRO_TICK_SYNC", "streamed"), "Queue 1 item 3"),
     ({}, ("REPRO_TICK_PLACEMENT", "single"), "Queue 1 item 3"),
-    ({}, ("REPRO_TICK_ADVERSARY", "sybil=1"), "Queue 1 item 2"),
 ], ids=lambda v: str(v))
 def test_unported_knobs_raise(universes, monkeypatch, kw, env, where):
     """What the port lacks raises, at construction and at ``run``; it never
@@ -362,6 +302,46 @@ def test_unported_knobs_raise(universes, monkeypatch, kw, env, where):
         FederationScheduler(tkgs, **base, tick_impl="bogus")
     with pytest.raises(ValueError, match="unknown aggregation"):
         FederationScheduler(tkgs, **base, aggregation="sum")
+
+
+#: (knob, accepted value, bad value, the reference's error) — each knob the
+#: robustness slice ported, as a constructor argument or an environment
+#: variable
+ROBUSTNESS_KNOBS = [
+    ("tick_adversary", "drift=0.5", "drift=1.5", "attack rate drift"),
+    ("robust_agg", "median", "krum", "unknown robust_agg"),
+    ("cos_screen", 0.5, 1.5, "cos_screen"),
+    ("tick_sync", "stream", "lockstep", "unknown tick sync"),
+    ("REPRO_TICK_SYNC", "streamed", "lockstep", "unknown tick sync"),
+    ("REPRO_TICK_ADVERSARY", "sybil=1", "bogus=1", "unknown tick_adversary key"),
+]
+
+
+@pytest.mark.parametrize("knob,good,bad,match", ROBUSTNESS_KNOBS, ids=lambda v: str(v))
+def test_robustness_knobs_resolve(universes, monkeypatch, knob, good, bad, match):
+    """The adversary, the defenses and streaming are accepted where the JAX
+    package accepts them, and a bad value raises its ``ValueError``: the
+    adversary's spec when a run resolves it, the others at construction."""
+    from repro.core.federation import FederationScheduler as JaxScheduler
+
+    jkgs, tkgs = universes
+    base = dict(dim=8, ppat_cfg=PPATConfig(steps=1), device="cpu")
+    env = knob.startswith("REPRO_")
+    kw = {} if env else {knob: good}
+    if env:
+        monkeypatch.setenv(knob, good)
+    s = FederationScheduler(tkgs, **base, **kw)
+    s.run(max_ticks=0)  # resolves every knob, runs nothing
+    if "adversary" in knob.lower():
+        assert s._adversary is not None
+    if knob in ("robust_agg", "cos_screen"):
+        assert s._defended
+    bad_kw = {} if env else {knob: bad}
+    if env:
+        monkeypatch.setenv(knob, bad)
+    for cls, kgs, extra in ((JaxScheduler, jkgs, {"dim": 8}), (FederationScheduler, tkgs, base)):
+        with pytest.raises(ValueError, match=match):
+            cls(kgs, **extra, **bad_kw).run(max_ticks=1)
 
 
 def test_quickstart_first_tick_equals_the_reference(capsys):

@@ -53,6 +53,9 @@ def test_port_files_exist():
                  "src/repro_torch/kernels/ssd_scan/ref.py",
                  "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py",
                  "src/repro_torch/core/federation.py", "src/repro_torch/core/faults.py",
+                 "src/repro_torch/core/adversary.py", "src/repro_torch/core/attacks.py",
+                 "src/repro_torch/checkpoint/__init__.py",
+                 "src/repro_torch/checkpoint/checkpointer.py",
                  "examples/quickstart_torch.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
@@ -128,6 +131,18 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FederationScheduler(kgs, dim=4)
     assert FederationScheduler(kgs, dim=4, device="cpu").device == torch.device("cpu")
+    from repro_torch.core import attacks
+
+    rows = {0: np.zeros(4), 1: np.ones(4)}
+    tri = np.array([[0, 0, 1]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attacks.membership_inference(rows, tri, tri)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attacks.reconstruction_attack(np.eye(4), np.eye(4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attacks.auc(np.ones(3), np.zeros(2))
+    assert attacks.auc(np.ones(3), np.zeros(2), device="cpu") == 1.0
+    assert attacks.auc(torch.ones(3), np.zeros(2)) == 1.0  # a tensor keeps its device
 
 
 def test_kernel_build_is_lazy():
@@ -140,6 +155,7 @@ def test_kernel_build_is_lazy():
         "from repro_torch.kernels.sparse_update import ops as sops\n"
         "from repro_torch.kernels.csls import ops as cops\n"
         "import repro_torch.core.ppat, repro_torch.core.aggregation\n"
+        "import repro_torch.core.adversary, repro_torch.core.attacks, repro_torch.checkpoint\n"
         "import repro_torch.models, repro_torch.launch.serve\n"
         "from repro_torch.kernels.flash_attention import ops as fops\n"
         "from repro_torch.kernels.ssd_scan import ops as kops\n"
