@@ -7,11 +7,13 @@ scores it, runs one full-width PPAT handshake with its KGEmb update,
 retrain and backtrack through ``repro_torch.core``, serves qwen3-0.6b and
 mamba2-2.7b at full width through ``repro_torch.serving.ServingEngine``,
 times the kernels, runs two ticks of the federation scheduler over Yago
-and Dbpedia with a serving tier attached, and drives a poisoning storm
+and Dbpedia with a serving tier attached, drives a poisoning storm
 against the Byzantine defenses over the same owners, cut by a checkpoint
-and resumed.
+and resumed, and holds the batched tick engine (captured CUDA graphs)
+against the serial one at that width, over the paper's eleven owners and
+on the 11-KG example's universe.
 
-    python3 chip_smoke.py            # one CUDA card; about three and a half minutes on an H100
+    python3 chip_smoke.py            # one CUDA card; about five minutes on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
@@ -176,6 +178,32 @@ Phases (every failed check ends the run with a non-zero exit):
    from the same draws (equal events with attack, fault and level, equal
    reputation, bit-equal epsilon, tables within 1e-5), the card's
    checkpoint restored into a CPU scheduler for one more tick.
+   Phases 15 and 16 pin ``tick_impl="reference"`` (the serial engine).
+17. the batched tick engine (``core/tick_engine.py``). a. Phase 15's
+   universe and scheduler through the serial engine, the batched engine
+   (each signature's first entry runs eagerly, then its graphs are
+   captured) and the batched engine again in a second scheduler (every
+   entry a replay), two ticks each, taken in turn from the same draws:
+   after every tick the events in every field but ``seconds``, epsilon and
+   every table bit-equal across the three, and each engine's epoch and
+   rank launches (replays counted) equal to the plan's. Per engine the
+   ticks' host clock, graphs captured, replays and eager segments; the
+   graphs' pool and static-input bytes; a ``torch.profiler`` window of the
+   replaying scheduler's first tick (device busy as the union of kernel
+   intervals, the streams overlap: the idle share, device time by kernel).
+   Then phase 16's storm for one tick on the batched engine: events,
+   verdicts and reputation equal phase 16's serial tick. b. The eleven
+   owners of Tab. 2 at their entity, relation and triple counts (uniform
+   triples, ``make_kg``), Tab. 3's nineteen alignments drawn uniformly,
+   TransE d = 100, ``MESH_ROUNDS`` PPAT rounds, one initial epoch, one tick
+   through the same three engines: equal events, bit-equal epsilon and
+   tables, launches as planned, the programs and graphs against the
+   entries. c. ``examples/federated_11kg_torch.py``'s universe (scale
+   1/400, TransE/H/R/D) cut to ``EXAMPLE_CUT`` with a Hit@10 backtrack,
+   two ticks: batched on the card against serial on the CPU from the same
+   draws and start tables (events equal, epsilon bit-equal, tables within
+   1e-5), then ``tick_placement="sharded"`` over ``OwnerPlacement((cuda:0,
+   cpu))`` against the single run (events equal, tables within 1e-5).
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -187,7 +215,7 @@ launch lasts tens of ms, and its ``ms`` is the device time of one (as
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6, 9, 12, 13, 15 and 16 at a tiny size (the
+``--rehearse`` runs phases 3, 6, 9, 12, 13, 15, 16 and 17 at a tiny size (the
 LM cards reduced) on the CPU with the plain versions (no kernels, no
 timings) and also exits non-zero.
 """
@@ -279,6 +307,11 @@ STORM_SPEC = "drift=0.4,replay=0.6,seed=2,strength=0.9,frac=0.5"
 STORM_COS = 0.3          # its ``cos_screen``, with ``robust_agg="median"``
 STORM_CUT = 1            # ticks before the checkpoint
 STORM_RESUMED = 2        # ticks after it, uninterrupted and resumed
+MESH_ROUNDS = 50         # PPAT rounds of phase 17b's eleven owners (cut from 200)
+EXAMPLE_SCALE = 400      # phase 17c: ``examples/federated_11kg_torch.py``'s default scale
+#: phase 17c's cut of the example's schedule (its defaults: 100 PPAT rounds,
+#: 100 local and 30 update epochs)
+EXAMPLE_CUT = dict(dim=32, ppat_steps=12, local_epochs=2, update_epochs=1)
 
 
 class SmokeFailure(RuntimeError):
@@ -1960,7 +1993,7 @@ def federation_path(torch, np, ops, sops, serving, dev, args, card, sizes):
     kgs, reg = fed_universe(np, AlignmentRegistry, args, sizes)
     sched = fed_mod.FederationScheduler(
         kgs, dim=DIM, registry=reg, score_metric="hit10", score_max_test=FED_MAX_TEST,
-        update_epochs=1, seed=args.seed, device=dev)
+        update_epochs=1, seed=args.seed, device=dev, tick_impl="reference")
     setup_s = time.perf_counter() - t0
     counters = (ops.LAUNCHES, sops.LAUNCHES)
     fed_launches = {}
@@ -2112,7 +2145,8 @@ def fed_card_vs_cpu(torch, np, dev, seed):
         for where in (dev, torch.device("cpu")):
             s = FederationScheduler(kgs, dim=FED_SMALL_DIM, ppat_cfg=cfg, local_epochs=2,
                                     update_epochs=1, seed=seed, device=where,
-                                    draws=GeneratorDraws(seed + 47, cfg, FED_SMALL_DIM))
+                                    draws=GeneratorDraws(seed + 47, cfg, FED_SMALL_DIM),
+                                    tick_impl="reference")
             start = torch.Generator().manual_seed(seed + 53)
             for tr in s.trainers.values():  # the same start tables on both
                 tr.params = {k: (torch.rand(v.shape, generator=start) - 0.5).to(where)
@@ -2252,7 +2286,7 @@ def storm_path(torch, np, ops, sops, dev, args, card, universe):
         return fed_mod.FederationScheduler(
             kgs, dim=DIM, registry=reg, score_metric="hit10", score_max_test=FED_MAX_TEST,
             update_epochs=1, seed=args.seed, device=dev, tick_adversary=STORM_SPEC,
-            robust_agg="median", cos_screen=STORM_COS)
+            robust_agg="median", cos_screen=STORM_COS, tick_impl="reference")
 
     def sync():
         if dev.type == "cuda":
@@ -2347,7 +2381,8 @@ def storm_path(torch, np, ops, sops, dev, args, card, universe):
            "stage_s": stages, "stage_calls": clock.calls, "tampered_rows": tampered,
            "verdicts": clock.verdicts, "reputation_at_cut": rep_cut,
            "reputation": dict(s1._reputation),
-           "events": storm_events(events), "launches": launches,
+           "events": storm_events(events), "first_events": storm_events(first),
+           "launches": launches,
            "replay_cache": sorted(s1._adversary.stale_arrays())}
     log(f"storm: {STORM_SPEC}, robust_agg median, cos_screen {STORM_COS}, on {dev}; initial "
         f"training {init_s:.2f}s; tick {cut} {tick1_s:.3f}s ({tampered} rows tampered, replay "
@@ -2417,7 +2452,8 @@ def storm_card_vs_cpu(torch, np, dev, seed, tmp_dir):
                                 update_epochs=1, seed=seed, device=where,
                                 draws=GeneratorDraws(seed + 47, cfg, FED_SMALL_DIM),
                                 tick_adversary=STORM_SPEC, robust_agg="median",
-                                cos_screen=STORM_COS, tick_sync=sync, staleness_bound=0)
+                                cos_screen=STORM_COS, tick_sync=sync, staleness_bound=0,
+                                tick_impl="reference")
         start = torch.Generator().manual_seed(seed + 53)
         for tr in s.trainers.values():  # the same start tables on both
             tr.params = {k: (torch.rand(v.shape, generator=start) - 0.5).to(where)
@@ -2499,6 +2535,458 @@ def storm_card_vs_cpu(torch, np, dev, seed, tmp_dir):
     return out
 
 
+# ------------------------------------------------------------ phase 17
+def busy_union_us(prof):
+    """Device-busy microseconds of a torch.profiler window as the union of
+    its kernels' intervals: kernels on several streams overlap, so their
+    summed durations can exceed the window."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((evt.start_ns(), evt.start_ns() + evt.duration_ns())
+                   for evt in prof.profiler.kineto_results.events()
+                   if evt.device_type() == DeviceType.CUDA
+                   and not getattr(evt, "is_hidden_event", lambda: False)())
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def profile_tick(torch, fn):
+    """``profile_window`` of one tick with the device's busy time taken as
+    the union of its kernels (streams overlap) and the stream count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    by_name = device_us_by_name(prof)
+    busy = busy_union_us(prof)
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "kernel_sum_ms": sum(by_name.values()) / 1e3,
+            "idle_share": None if busy == 0 else 1 - busy / wall_us,
+            "top": [(k[:90], v / 1e3) for k, v in sorted(by_name.items(),
+                                                         key=lambda kv: -kv[1])[:8]]}
+
+
+def table_diff(torch, a, b):
+    """(bit-equal, max |a - b|) over every table of two schedulers."""
+    same, err = True, 0.0
+    for n in a.trainers:
+        for k, v in a.trainers[n].params.items():
+            w = b.trainers[n].params[k].to(v.device)
+            if not torch.equal(v, w):
+                same = False
+                err = max(err, max_err(v.cpu(), w.cpu()))
+    return same, err
+
+
+def warm_caches(sched):
+    """Fill the tick engine's host-side caches (each pair's aligned sets,
+    virtual structure and padded store, each owner's store and scoring
+    inputs) the way a scheduler's first handshake ticks fill them."""
+    eng = sched._tick_engine
+    for host in sched.trainers:
+        eng._own_info(host)
+        eng._score_info(host)
+        for client in sched.registry.partners(host):
+            eng._pair_info(client, host)
+
+
+def run_engines(torch, ops, sops, dev, make, ticks, names, profile=None):
+    """Each of ``names`` (engine name → tick_impl) gets its scheduler from
+    ``make``, one initial epoch, then ``ticks`` ticks, the schedulers taking
+    each tick in turn so that a later batched one replays what an earlier
+    one captured. ``profile`` names the steady-state engine: its caches are
+    warmed before its first tick (``warm_caches``, timed apart), and that
+    tick runs under the profiler (its host clock is the profiled window's).
+    After every tick all must equal the first: events (every field but
+    ``seconds``), epsilon bit for bit, every table bit for bit. Returns each
+    engine's scheduler, per-tick host clock, launches, tick engine counts
+    and the profile."""
+    res = {}
+    for name, impl in names.items():
+        s = make(impl)
+        s.initial_training(1)
+        res[name] = {"sched": s, "tick_s": [], "launches": {}, "engine": []}
+        if name == profile:
+            t0 = time.perf_counter()
+            warm_caches(s)
+            res[name]["warm_s"] = time.perf_counter() - t0
+    prof = None
+    for t in range(ticks):
+        for name in names:
+            r = res[name]
+            s = r["sched"]
+            ops.reset_launches()
+            sops.reset_launches()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if name == profile and t == 0 and dev.type == "cuda":
+                prof = profile_tick(torch, lambda: s.run(max_ticks=1))
+                r["tick_s"].append(prof["wall_ms"] / 1e3)
+            else:
+                s.run(max_ticks=1)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                r["tick_s"].append(time.perf_counter() - t0)
+            for c in (ops.LAUNCHES, sops.LAUNCHES):
+                for k, v in c.items():
+                    r["launches"][k] = r["launches"].get(k, 0) + v
+            r["engine"].append(dict(s._tick_engine.last) if s.tick_impl == "batched" else None)
+        first = next(iter(names))
+        base = res[first]["sched"]
+        for name in list(names)[1:]:
+            s = res[name]["sched"]
+            check(storm_events(s.events) == storm_events(base.events),
+                  f"tick {t + 1}: {name}'s events differ from {first}'s: "
+                  f"{storm_events(s.events)} vs {storm_events(base.events)}")
+            check(s.epsilons == base.epsilons, f"tick {t + 1}: {name}'s epsilons differ")
+            same, err = table_diff(torch, base, s)
+            check(same, f"tick {t + 1}: {name}'s tables differ from {first}'s by {err}")
+    return res, prof
+
+
+def engine_line(name, r):
+    eng = [e for e in r["engine"] if e is not None]
+    tot = {k: sum(e[k] for e in eng) for k in ("entries", "captured", "replays",
+                                                "eager_segments")} if eng else None
+    warm = f" (caches warmed first, {r['warm_s']:.3f} s)" if "warm_s" in r else ""
+    return (f"{name}: ticks {', '.join(f'{t:.3f}' for t in r['tick_s'])} s host clock{warm}"
+            + ("" if tot is None else f"; {tot['entries']} entries, {tot['captured']} graphs "
+               f"captured, {tot['replays']} replays, {tot['eager_segments']} eager segments"))
+
+
+def plan_launches(sched, entries):
+    """The launches a plan implies: one epoch-kernel launch per retrain
+    epoch and two rank launches per 128-triple chunk of each Hit@10 score."""
+    per = {n: 2 * -(-min(len(sched.kgs[n].valid), sched.score_max_test) // 128)
+           for n in sched.trainers}
+    return {"sparse_sgd_step": len(entries) * sched.update_epochs,
+            "fused_ranks": sum(per[e.host] for e in entries), "pairwise_scores": 0}
+
+
+def engines_full_width(torch, np, ops, sops, dev, args, card, universe, storm_first):
+    """Phase 17a: phase 15's universe and scheduler through the serial
+    engine, the batched engine (capturing) and the batched engine again
+    (replaying), two ticks each from the same draws; then phase 16's storm
+    for one tick on the batched engine against phase 16's serial tick."""
+    from repro_torch.core import federation as fed_mod
+    from repro_torch.core import tick_engine
+
+    kgs, reg = universe
+    tick_engine.clear_tick_programs()
+
+    def make(impl, **kw):
+        return fed_mod.FederationScheduler(
+            kgs, dim=DIM, registry=reg, score_metric="hit10", score_max_test=FED_MAX_TEST,
+            update_epochs=1, seed=args.seed, device=dev, tick_impl=impl, **kw)
+
+    names = {"serial": "reference", "batched-capture": "batched", "batched-replay": "batched"}
+    res, prof = run_engines(torch, ops, sops, dev, make, FED_TICKS, names,
+                            profile="batched-replay")
+    graphs = tick_engine.tick_graph_stats()
+    programs = tick_engine.tick_program_cache_size()
+    entries = [e for e in res["serial"]["sched"].events if e.kind != "init"]
+    want = plan_launches(res["serial"]["sched"], entries)
+    launches = {}
+    for name, r in res.items():
+        got = {k: r["launches"].get(k, 0) for k in want}
+        if dev.type == "cuda":
+            check(got == want, f"{name} launched {got}, the plan implies {want}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    rep = res["batched-replay"]
+    check(dev.type != "cuda" or (sum(e["captured"] for e in rep["engine"]) == 0
+                                 and sum(e["replays"] for e in rep["engine"]) > 0),
+          f"the second batched scheduler captured graphs: {rep['engine']}")
+    for r in res.values():
+        r["sched"] = None
+    # the storm, one tick on the batched engine, against phase 16's serial tick
+    ops.reset_launches()
+    sops.reset_launches()
+    s = make("batched", tick_adversary=STORM_SPEC, robust_agg="median", cos_screen=STORM_COS)
+    s.initial_training(1)
+    rep_before = dict(s._reputation)
+    t0 = time.perf_counter()
+    s.run(max_ticks=STORM_CUT)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    storm_s = time.perf_counter() - t0
+    storm_ev = [e for e in s.events if e.kind != "init"]
+    check(storm_events(storm_ev) == storm_first["events"],
+          f"the batched storm tick differs from the serial one: {storm_events(storm_ev)} vs "
+          f"{storm_first['events']}")
+    check(s._reputation == storm_first["reputation"],
+          f"reputation {s._reputation} after the batched storm tick, the serial run's "
+          f"{storm_first['reputation']}")
+    for k, v in {**ops.LAUNCHES, **sops.LAUNCHES}.items():
+        launches[k] = launches.get(k, 0) + v
+    out = {"tick_s": {n: r["tick_s"] for n, r in res.items()},
+           "warm_s": {n: r.get("warm_s") for n, r in res.items()},
+           "engine": {n: r["engine"] for n, r in res.items()},
+           "launches_per_engine": {n: r["launches"] for n, r in res.items()},
+           "plan_launches": want, "programs": programs, "graphs": graphs, "profile": prof,
+           "storm_tick_s": storm_s, "storm_events": storm_events(storm_ev),
+           "storm_reputation": dict(s._reputation), "launches": launches}
+    log(f"tick engines at full width (phase 15's universe, {FED_TICKS} ticks, the same "
+        f"draws): events equal, epsilon bit-equal and tables bit-equal after every tick "
+        f"across serial, batched capturing and batched replaying; launches per engine "
+        f"{want} (= the plan's); {programs} programs, {graphs['graphs']} graphs, pools "
+        f"{graphs['pool_bytes']} bytes, static inputs {graphs['static_bytes']} bytes")
+    for name, r in res.items():
+        log("tick engines " + engine_line(name, r) + f"; {card}")
+    if prof is not None:
+        log(f"profile batched-replay tick 1: {prof['wall_ms']:.1f} ms wall (profiled), device "
+            f"busy {prof['device_busy_ms']:.1f} ms (union; kernels sum "
+            f"{prof['kernel_sum_ms']:.1f} ms), idle share "
+            + ("not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}")
+            + f"; {card}")
+        for name, ms in prof["top"]:
+            log(f"profile batched-replay tick 1:   {ms:10.3f} ms  {name}")
+    log(f"tick engines: the storm's tick {STORM_CUT} on the batched engine {storm_s:.3f}s: "
+        f"{len(storm_ev)} events, faults {[e.fault for e in storm_ev]}, reputation "
+        f"{s._reputation} (rep before {rep_before}) equal to phase 16's serial tick")
+    tick_engine.clear_tick_programs()
+    return out
+
+
+def mesh_universe(np, args, scale=1.0):
+    """Phase 17b's owners: the eleven KGs of Tab. 2 at their entity,
+    relation and triple counts (times ``scale``), uniform triples, and Tab.
+    3's nineteen alignments drawn uniformly on each side."""
+    from repro_torch.core.alignment import AlignmentRegistry
+    from repro_torch.kge.data import PAPER_ALIGNMENTS, PAPER_KG_STATS
+
+    kgs = {}
+    for i, (name, r, e, n) in enumerate(PAPER_KG_STATS):
+        e, n = max(64, int(e * scale)), max(256, int(n * scale))
+        seed = args.seed + 100 + i
+        kgs[name] = make_kg(np, seed, e, r, draw_known(np, seed, e, r, n), name)
+    rng = np.random.default_rng(args.seed + 61)
+    reg = AlignmentRegistry()
+    for a, b, n_al in PAPER_ALIGNMENTS:
+        n_al = min(max(2, int(n_al * scale)), kgs[a].num_entities, kgs[b].num_entities)
+        reg.add_entities(a, b, np.sort(rng.choice(kgs[a].num_entities, n_al, replace=False)),
+                         rng.choice(kgs[b].num_entities, n_al, replace=False))
+    return kgs, reg
+
+
+def engines_eleven_owners(torch, np, ops, sops, dev, args, card, scale=1.0):
+    """Phase 17b: the eleven Tab. 2 owners, one tick through the serial
+    engine and twice through the batched one (capturing, then replaying)
+    from the same draws."""
+    from repro_torch.core import federation as fed_mod
+    from repro_torch.core import tick_engine
+    from repro_torch.core.ppat import PPATConfig
+
+    t0 = time.perf_counter()
+    kgs, reg = mesh_universe(np, args, scale)
+    built_s = time.perf_counter() - t0
+    tick_engine.clear_tick_programs()
+
+    def make(impl):
+        return fed_mod.FederationScheduler(
+            kgs, dim=DIM, registry=reg, score_metric="hit10", score_max_test=FED_MAX_TEST,
+            update_epochs=1, seed=args.seed, device=dev, tick_impl=impl,
+            ppat_cfg=PPATConfig(steps=MESH_ROUNDS, seed=args.seed))
+
+    names = {"serial": "reference", "batched-capture": "batched", "batched-replay": "batched"}
+    res, prof = run_engines(torch, ops, sops, dev, make, 1, names, profile="batched-replay")
+    sched = res["serial"]["sched"]
+    entries = [e for e in sched.events if e.kind != "init"]
+    want = plan_launches(sched, entries)
+    launches = {}
+    for name, r in res.items():
+        got = {k: r["launches"].get(k, 0) for k in want}
+        if dev.type == "cuda":
+            check(got == want, f"eleven owners: {name} launched {got}, the plan implies {want}")
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    graphs = tick_engine.tick_graph_stats()
+    programs = tick_engine.tick_program_cache_size()
+    n_ent = sum(kg.num_entities for kg in kgs.values())
+    table_bytes = sum(v.numel() * v.element_size() for tr in sched.trainers.values()
+                      for v in tr.params.values())
+    out = {"owners": len(kgs), "entities": n_ent, "table_bytes": table_bytes,
+           "built_s": built_s, "entries": len(entries),
+           "kinds": [(e.host, e.kind, e.client) for e in entries], "programs": programs,
+           "graphs": graphs, "tick_s": {n: r["tick_s"] for n, r in res.items()},
+           "warm_s": {n: r.get("warm_s") for n, r in res.items()},
+           "engine": {n: r["engine"] for n, r in res.items()}, "profile": prof,
+           "plan_launches": want, "launches": launches}
+    for r in res.values():
+        r["sched"] = None
+    log(f"eleven owners (Tab. 2 counts{'' if scale == 1.0 else f' x {scale}'}, {n_ent} "
+        f"entities, {table_bytes} bytes of tables, Tab. 3's alignments, "
+        f"d={DIM}, {MESH_ROUNDS} PPAT rounds; built in {built_s:.2f}s): one tick of "
+        f"{len(entries)} entries, events equal, epsilon and tables bit-equal across serial, "
+        f"batched capturing and batched replaying; {programs} programs, {graphs['graphs']} "
+        f"graphs for {len(entries)} entries, pools {graphs['pool_bytes']} bytes, static inputs "
+        f"{graphs['static_bytes']} bytes; launches per engine {want} (= the plan's)")
+    for name, r in res.items():
+        log("eleven owners " + engine_line(name, r) + f"; {card}")
+    if prof is not None:
+        log(f"profile eleven owners batched-replay tick: {prof['wall_ms']:.1f} ms wall, device "
+            f"busy {prof['device_busy_ms']:.1f} ms (union; kernels sum "
+            f"{prof['kernel_sum_ms']:.1f} ms), idle share "
+            + ("not measured" if prof["idle_share"] is None else f"{prof['idle_share']:.3f}")
+            + f"; {card}")
+    tick_engine.clear_tick_programs()
+    return out
+
+
+def first_divergence(a, b):
+    """``None`` when two schedulers' events agree in every field of
+    ``storm_events`` but the scores; else ``(event a, event b, reason)`` for
+    the first entry they decide differently, which must have a reason the
+    devices explain: a near-tie (both backtrack scores within one scoring
+    triple of the other run's: 1/n of Hit@10 over n triples), or a
+    refined handshake whose aligned set has fewer rows than the width, where
+    the procrustes product is rank-deficient and its polar factor not
+    unique (cuSOLVER and LAPACK complete its null space differently). Later
+    events follow the other decision and are not compared."""
+    keys = ("tick", "host", "client", "kind", "accepted", "fault", "attack", "level",
+            "owner_clock", "view_version")
+    for x, y in zip(a.events, b.events):
+        if [getattr(x, k) for k in keys] == [getattr(y, k) for k in keys]:
+            continue
+        check([getattr(x, k) for k in keys if k != "accepted"]
+              == [getattr(y, k) for k in keys if k != "accepted"],
+              f"the runs part at {x} vs {y}")
+        n = min(len(a.kgs[x.host].valid), a.score_max_test)
+        dim = a.trainers[x.host].model.dim
+        if abs(x.score_after - y.score_after) <= 1 / n \
+                and abs(x.score_before - y.score_before) <= 1 / n:
+            return x, y, "near-tie"
+        if x.kind == "ppat" and a.procrustes_refine \
+                and a.registry.num_aligned(x.client, x.host) < dim:
+            return x, y, (f"rank-deficient procrustes "
+                          f"({a.registry.num_aligned(x.client, x.host)} aligned < d = {dim})")
+        check(False, f"the runs part at {x} vs {y}, neither a near-tie nor a rank-deficient "
+              "procrustes")
+    check(len(a.events) == len(b.events), "the runs have different event counts")
+    return None
+
+
+def engines_example(torch, np, dev, args, scale=EXAMPLE_SCALE):
+    """Phase 17c: ``examples/federated_11kg_torch.py``'s universe (mixed
+    TransE/H/R/D), cut to ``EXAMPLE_CUT``, Hit@10 backtrack, two ticks from
+    the same draws and start tables, under ``REPRO_TRAIN_IMPL=fused``:
+
+    - the batched engine against the serial engine, both on ``dev``:
+      events, epsilon and tables bit-equal;
+    - against the serial engine on the CPU: epsilon bit-equal while the
+      runs agree, tables within ``FED_TABLE_ATOL`` when they never part,
+      and they may part only where the devices explain it
+      (``first_divergence``): at this scale most of Tab. 3's alignments
+      have a few rows, fewer than d, and there the procrustes refine is not
+      unique;
+    - ``tick_placement="sharded"`` over ``OwnerPlacement((dev, cpu))``
+      against the single run, held the same way (the owners homed on the
+      CPU compute there).
+
+    The CPU runs on one thread: TransR's autograd step is not bit-stable
+    run to run on several (the einsum's backward splits its sums)."""
+    import importlib.util
+    import os
+
+    from repro_torch.core.distributed import OwnerPlacement
+    from repro_torch.core.federation import GeneratorDraws
+    from repro_torch.core.ppat import PPATConfig
+
+    spec = importlib.util.spec_from_file_location(
+        "federated_11kg_torch", REPO / "examples" / "federated_11kg_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cpu = torch.device("cpu")
+    cut = dict(EXAMPLE_CUT, scale=scale)
+    cfg = PPATConfig(steps=cut["ppat_steps"], seed=0)
+    old = os.environ.get("REPRO_TRAIN_IMPL")
+    os.environ["REPRO_TRAIN_IMPL"] = "fused"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    runs, secs = {}, {}
+    try:
+        start = None
+        for name, where, impl, placement in (("cpu-serial", cpu, "reference", None),
+                                             ("serial", dev, "reference", None),
+                                             ("batched", dev, "batched", "single"),
+                                             ("sharded", dev, "batched", "sharded")):
+            s = ex.build(where, tick_impl=impl, tick_placement=placement,
+                         draws=GeneratorDraws(args.seed + 71, cfg, cut["dim"]),
+                         score_metric="hit10", **cut)
+            if start is None:
+                start = {n: dict(tr.params) for n, tr in s.trainers.items()}
+            for n, tr in s.trainers.items():  # the same start tables on every run
+                tr.params = {k: v.to(where) for k, v in start[n].items()}
+            if name == "sharded":
+                s._tick_engine.placement = OwnerPlacement([dev, cpu])
+            t0 = time.perf_counter()
+            s.initial_training()
+            s.run(max_ticks=2)
+            secs[name] = time.perf_counter() - t0
+            runs[name] = s
+    finally:
+        torch.set_num_threads(threads)
+        if old is None:
+            del os.environ["REPRO_TRAIN_IMPL"]
+        else:
+            os.environ["REPRO_TRAIN_IMPL"] = old
+    a, ser, cpu_run, sh = runs["batched"], runs["serial"], runs["cpu-serial"], runs["sharded"]
+    check(storm_events(a.events) == storm_events(ser.events),
+          f"the example: batched and serial on {dev} differ: {storm_events(a.events)} vs "
+          f"{storm_events(ser.events)}")
+    same, err_dev = table_diff(torch, a, ser)
+    check(same and a.epsilons == ser.epsilons,
+          f"the example: batched and serial tables on {dev} differ by {err_dev}")
+    out = {"families": {n: tr.model.family for n, tr in a.trainers.items()},
+           "events": len(a.events), "seconds": secs, "engine": a._tick_engine.stats,
+           "sharded_engine": sh._tick_engine.stats,
+           "homes": sh._tick_engine.placement.assignments(),
+           "on_cpu": sorted(n for n, tr in sh.trainers.items()
+                            if tr.params["ent"].device.type == "cpu"),
+           "accepted": sum(e.accepted for e in a.events if e.kind != "init")}
+    for key, other in (("cpu", cpu_run), ("sharded", sh)):
+        tie = first_divergence(a, other)
+        agree = a.events[:a.events.index(tie[0])] if tie is not None else a.events
+        check([repr(e.epsilon) for e in agree]
+              == [repr(e.epsilon) for e in other.events[:len(agree)]],
+              f"the example: epsilon differs from the {key} run before they part")
+        err = table_diff(torch, a, other)[1] if tie is None else None
+        check(err is None or err <= FED_TABLE_ATOL,
+              f"the example: tables differ from the {key} run by {err}")
+        out[key] = {"diverged_at": None if tie is None else
+                    [(e.tick, e.host, e.client, e.accepted, e.score_before, e.score_after)
+                     for e in tie[:2]] + [tie[2]],
+                    "events_before": len(agree), "table_err": err}
+    fams = sorted(set(out["families"].values()))
+    log(f"the example (scale 1/{scale:g}, families {fams}, cut {EXAMPLE_CUT}, Hit@10, 2 "
+        f"ticks): batched on {dev} equals serial on {dev} bit for bit ({len(a.events)} events, "
+        f"{out['accepted']} accepts; batched counts {a._tick_engine.stats}); against serial on "
+        f"the CPU: " + ("events equal, tables max|err|="
+                        f"{out['cpu']['table_err']:.3g}" if out["cpu"]["diverged_at"] is None
+                        else f"{out['cpu']['events_before']} events equal, then parted at "
+                        f"{out['cpu']['diverged_at']}")
+        + f"; sharded over ({dev}, cpu), homes {out['homes']}, tables left on the CPU "
+        f"{out['on_cpu']}: " + ("events equal, tables max|err|="
+                                f"{out['sharded']['table_err']:.3g}"
+                                if out["sharded"]["diverged_at"] is None
+                                else f"{out['sharded']['events_before']} events equal, then "
+                                f"parted at {out['sharded']['diverged_at']}")
+        + f"; host clock {', '.join(f'{k} {v:.2f}s' for k, v in secs.items())}")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2550,8 +3038,13 @@ def main(argv=None) -> int:
         _, universe = federation_path(
             torch, np, ops, sops, serving, dev, args, "cpu",
             ((4_000, 50, 12_000), (3_000, YAGO["relations"], 12_000), 1_000))
-        storm_path(torch, np, ops, sops, dev, args, "cpu", universe)
+        storm = storm_path(torch, np, ops, sops, dev, args, "cpu", universe)
         storm_card_vs_cpu(torch, np, dev, args.seed, REPO / "build")
+        engines_full_width(torch, np, ops, sops, dev, args, "cpu", universe,
+                           {"events": storm["first_events"],
+                            "reputation": storm["reputation_at_cut"]})
+        engines_eleven_owners(torch, np, ops, sops, dev, args, "cpu", scale=0.002)
+        engines_example(torch, np, dev, args, scale=4000)
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -2631,7 +3124,6 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     storm = storm_path(torch, np, ops, sops, dev, args, card, universe)
-    del universe
     torch.cuda.empty_cache()
     storm["robust_rows_ms"] = robust_rows_timings(torch, dev, args.seed, card)
     storm["card_vs_cpu"] = storm_card_vs_cpu(torch, np, dev, args.seed, REPO / "build")
@@ -2639,13 +3131,30 @@ def main(argv=None) -> int:
     log(f"storm: phase 16 took {storm['phase_s']:.1f}s")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    engines = {"full_width": engines_full_width(
+        torch, np, ops, sops, dev, args, card, universe,
+        {"events": storm["first_events"], "reputation": storm["reputation_at_cut"]})}
+    del universe
+    torch.cuda.empty_cache()
+    engines["eleven_owners"] = engines_eleven_owners(torch, np, ops, sops, dev, args, card)
+    torch.cuda.empty_cache()
+    engines["example"] = engines_example(torch, np, dev, args)
+    engines["phase_s"] = time.perf_counter() - t0
+    log(f"tick engines: phase 17 took {engines['phase_s']:.1f}s")
+    torch.cuda.empty_cache()
+
     # each kernel's launches over the main paths that run it: serving (phase
     # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12),
-    # the federation with its attached tier (phase 15) and the storm (phase 16)
+    # the federation with its attached tier (phase 15), the storm (phase 16)
+    # and the tick engines at full width and over the eleven owners (phase
+    # 17, replays counted)
     lm_launches = {**lm["qwen3-0.6b"]["launches"], **lm["mamba2-2.7b"]["launches"]}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
                 + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
                 + fed["launches"].get(name, 0) + storm["launches"].get(name, 0)
+                + engines["full_width"]["launches"].get(name, 0)
+                + engines["eleven_owners"]["launches"].get(name, 0)
                 for name in KERNELS}
     for name in ("flash_attention", "ssd_chunks"):
         check(launches[name] > 0, f"the LM serving path never launched {name}")
@@ -2665,6 +3174,7 @@ def main(argv=None) -> int:
     result = {"card": card, "build_s": build_s, "sass": sass, "check_max_abs_err": worst,
               "serve": res,
               "train": train, "handshake": hs, "lm": lm, "federation": fed, "storm": storm,
+              "tick_engines": engines,
               "timings": times,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

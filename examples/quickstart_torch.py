@@ -2,7 +2,7 @@
 
 ``examples/quickstart.py`` on ``repro_torch``: the same two synthetic KGs
 sharing aligned entities, trained locally (TransE), then federated by the
-serial scheduler for three ticks, printing the triple-classification scores
+scheduler (its batched tick engine) for three ticks, printing the triple-classification scores
 before and after and the DP budget ε̂ of each handshake. Runs on the current
 CUDA card, or on the CPU with ``--device cpu``.
 

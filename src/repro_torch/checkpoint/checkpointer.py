@@ -19,8 +19,9 @@ sidecar (``rng``), and the state of a ``draws=`` source (``state_dict()``)
 under ``draws/``. A generator state belongs to its device type (a CUDA
 state does not load into a CPU generator), so restoring into a scheduler of
 another device type works only when both draw from a ``draws=`` source,
-whose state is device-free; otherwise it raises. The port has no tick
-placement, so the sidecar has no ``placement`` field.
+whose state is device-free; otherwise it raises. The sidecar's
+``placement`` holds the batched engine's sticky owner slots, so a resumed
+run homes every owner where the interrupted one did.
 """
 from __future__ import annotations
 
@@ -156,6 +157,7 @@ def save_scheduler(path: str, sched, *, metadata: Optional[Dict] = None) -> None
         "reputation": {n: float(v) for n, v in sched._reputation.items()},
         "adversary_stale": {key: {leaf: list(a.shape) for leaf, a in leaves.items()}
                             for key, leaves in stale.items()},
+        "placement": sched._tick_engine.placement.assignments(),
         "rng": {n: tr.rng.bit_generator.state for n, tr in sched.trainers.items()},
         # the streamed pass's frontier is empty at every save point (passes
         # complete whole), so its re-offers live in the queues above
@@ -248,6 +250,9 @@ def restore_scheduler(path: str, sched) -> Dict:
     sched._view_version = {k: int(v) for k, v in st.get("view_version", {}).items()}
     sched._owner_free = {k: float(v) for k, v in st.get("owner_free", {}).items()}
     sched._publish_sim = {k: float(v) for k, v in st.get("publish_sim", {}).items()}
+    for owner, version in sched._view_version.items():
+        sched._tick_engine.placement.note_version(owner, version)
     if stale_shapes:
         sched._adversary.load_stale(tree["adversary"])
+    sched._tick_engine.placement.restore_assignments(sd.get("placement", {}))
     return {k: v for k, v in meta.items() if k != "scheduler"}

@@ -17,11 +17,14 @@ The paper's asynchrony is modelled as scheduler ticks. Each tick is planned
 at its start: every Ready owner contributes one entry — a handshake with the
 front of its offer queue, or a self-train — and each handshake's client
 tables are frozen then, so accepts made during a tick take effect from the
-next one. The port runs a plan through the serial per-owner loop (the JAX
-package's ``tick_impl="reference"``); that is its only engine, where the
-JAX package defaults to its batched engine, documented there as
-bit-identical to the serial one. The batched engine and its device
-placement are not ported: asking for them raises (``kernels.dispatch``).
+next one. Two engines run a plan (``tick_impl=``, ``REPRO_TICK_IMPL``):
+``batched`` (the default, as in the JAX package; ``core.tick_engine``) runs
+every entry as one program per entry signature — captured CUDA graphs on a
+card — with one host sync per tick, over the owners' home devices when
+``tick_placement="sharded"``; ``reference`` is the serial per-owner loop
+(``_run_serial``). Both take the same decisions and give the same tables
+from the same draws; ``batched`` needs a training step other than the dense
+``reference`` loop.
 
 Two scheduling disciplines (``tick_sync=``, ``REPRO_TICK_SYNC``):
 ``barrier`` (the default) runs lockstep ticks. ``stream`` (``_run_stream``)
@@ -93,7 +96,6 @@ from repro_torch.core.aggregation import (
     kgemb_update,
     robust_rows,
     virtual_extension,
-    virtual_structure,
 )
 from repro_torch.core.alignment import AlignmentRegistry, procrustes
 from repro_torch.core.distributed import committed_device
@@ -107,13 +109,16 @@ from repro_torch.core.ppat import (
     train_ppat,
 )
 from repro_torch.core.privacy import MomentsAccountant
+from repro_torch.core.tick_engine import TickEngine
 from repro_torch.kernels.dispatch import (
-    refuse_tick_layers,
     resolve_device,
     resolve_tick_adversary,
     resolve_tick_faults,
     resolve_tick_impl,
+    resolve_tick_placement,
+    resolve_tick_residency,
     resolve_tick_sync,
+    resolve_train_impl,
 )
 from repro_torch.kge.data import corrupt_triples
 from repro_torch.kge.engine import as_device, draw_epoch
@@ -301,7 +306,9 @@ class FederationScheduler:
             raise ValueError(f"unknown aggregation mode {aggregation!r}")
         resolve_tick_impl(tick_impl)
         resolve_tick_sync(tick_sync)
-        refuse_tick_layers(tick_placement, tick_residency)
+        resolve_tick_placement(tick_placement)
+        resolve_tick_residency(tick_residency)
+        #: the owners' home: every table starts here (one card, or the CPU)
         self.device = resolve_device(device)
         self.score_split = score_split
         self.score_metric = score_metric
@@ -395,7 +402,8 @@ class FederationScheduler:
         # keyed on what they depend on (see ``_score_universe``)
         self._acc_inputs: Dict[str, tuple] = {}
         self._lp_inputs: Dict[str, tuple] = {}
-        self._screen_idx: Dict[tuple, np.ndarray] = {}
+        #: the batched engine; its pair cache also serves the serial screens
+        self._tick_engine = TickEngine(self)
 
     # ------------------------------------------------------------ scoring
     def _score_universe(self, name: str) -> tuple:
@@ -495,7 +503,9 @@ class FederationScheduler:
         self._accept_listeners.append(fn)
 
     def _notify_accept(self, owner: str) -> None:
-        self._view_version[owner] = self._view_version.get(owner, 0) + 1
+        version = self._view_version.get(owner, 0) + 1
+        self._view_version[owner] = version
+        self._tick_engine.placement.note_version(owner, version)
         params = self.trainers[owner].params
         for fn in self._accept_listeners:
             fn(owner, self._tick, params)
@@ -854,30 +864,13 @@ class FederationScheduler:
         self._adversary_src = src
         return self._adversary
 
-    def _pair_screen_idx(self, client: str, host: str) -> np.ndarray:
-        """The client entity rows a (client, host) handshake reads: the
-        aligned set, plus the virtual neighbours when ``use_virtual`` is on."""
-        key = (client, host)
-        idx = self._screen_idx.get(key)
-        if idx is None:
-            idx_c, idx_h = self.registry.entities(client, host)
-            idx = np.asarray(idx_c, np.int64)
-            if self.use_virtual:
-                host_m = self.trainers[host].model
-                vs = virtual_structure(self.kgs[client], idx_c, idx_h,
-                                       host_m.num_entities, host_m.num_relations)
-                if vs is not None:
-                    idx = np.concatenate([idx, np.asarray(vs[0], np.int64)])
-            self._screen_idx[key] = idx
-        return idx
-
     def screen_incoming(self, host: str, client: str, view: Dict, *, bound: float) -> None:
         """The receiver's acceptance screen on an incoming client view, run
         before any PPAT draw: every row the host will read must be finite
         and inside the norm bound, else ``CorruptEmbeddingError`` blames the
         client."""
         ent = view["ent"]
-        rows = ent[as_device(self._pair_screen_idx(client, host), ent.device)]
+        rows = ent[as_device(self._tick_engine._pair_info(client, host)["screen_idx"], ent.device)]
         screen_rows(rows, bound=bound, host=host, client=client, what="client embeddings")
 
     # -------------------------------------------------------------- loop
@@ -932,24 +925,42 @@ class FederationScheduler:
         One failing entry never aborts its tick (``_entry_failed``); an
         unexpected exception puts the plan's un-executed remainder back into
         the queues before it propagates."""
-        resolve_tick_impl(tick_impl if tick_impl is not None else self.tick_impl)
+        impl = resolve_tick_impl(tick_impl if tick_impl is not None else self.tick_impl)
         sync = resolve_tick_sync(tick_sync if tick_sync is not None else self.tick_sync)
-        refuse_tick_layers(
-            tick_placement if tick_placement is not None else self.tick_placement,
-            tick_residency if tick_residency is not None else self.tick_residency,
-        )
+        placement = tick_placement if tick_placement is not None else self.tick_placement
+        residency = tick_residency if tick_residency is not None else self.tick_residency
+        resolve_tick_placement(placement)
+        resolve_tick_residency(residency)
         bound = self.staleness_bound if staleness_bound is None else int(staleness_bound)
         if bound < 0:
             raise ValueError(f"staleness_bound={bound} must be >= 0")
+        if impl == "batched" and any(
+                resolve_train_impl(None, tr.model.family) == "reference"
+                for tr in self.trainers.values()):
+            # checked before any plan pops an offer
+            raise ValueError("tick_impl='batched' cannot run the 'reference' training step "
+                             "(REPRO_TRAIN_IMPL=reference); run with tick_impl='reference'")
         injector = self._fault_injector(tick_faults)
         adversary = self._adversary_for(tick_adversary)
+
+        def execute(entries: List[TickEntry]) -> List[FederationEvent]:
+            if impl == "reference":
+                return self._run_serial(entries, injector, adversary, self.tick_deadline)
+            return self._tick_engine.execute(
+                entries, self._tick, placement=placement, residency=residency,
+                faults=injector, adversary=adversary, deadline=self.tick_deadline)
+
         if sync == "stream":
             return self._run_stream(max_ticks, self_train=self_train, injector=injector,
-                                    adversary=adversary, bound=bound)
+                                    bound=bound, execute=execute)
         for _ in range(max_ticks):
             self._tick += 1
             plan = self.plan_tick(self_train=self_train)
-            events = self._run_serial(plan, injector, adversary, self.tick_deadline)
+            try:
+                events = execute(plan)
+            except Exception:
+                self._unwind_plan(plan, {ev.host for ev in self.events if ev.tick == self._tick})
+                raise
             self._stamp_events(plan, events, level=0)
             self._sim_account_barrier(events)
             if (
@@ -1046,12 +1057,13 @@ class FederationScheduler:
             e.ppat_draws = self._draw_ppat(e.host, e.client)
 
     def _run_stream(self, max_ticks: int, *, self_train: bool,
-                    injector: Optional[FaultInjector], adversary: Optional[Adversary],
-                    bound: int) -> Dict[str, float]:
+                    injector: Optional[FaultInjector], bound: int,
+                    execute: Callable[[List[TickEntry]], List[FederationEvent]]
+                    ) -> Dict[str, float]:
         """Dependency-level streaming passes (``tick_sync="stream"``).
 
         Each pass plans like a barrier tick, cuts the plan into levels and
-        runs them in order through ``_run_serial``. At each level a
+        runs them in order through ``execute`` (the chosen engine). At each level a
         handshake whose frozen view is more than ``bound`` versions behind
         its client emits a ``fault="stale"`` audit event and re-offers: a
         fresh view is frozen and runs in a trailing level of this pass;
@@ -1093,7 +1105,7 @@ class FederationScheduler:
                     pending.append(reoffer_level)
                 if live:
                     try:
-                        events = self._run_serial(live, injector, adversary, self.tick_deadline)
+                        events = execute(live)
                     except Exception:
                         done = {ev.host for ev in self.events
                                 if ev.tick == self._tick and ev.fault != "stale"}
@@ -1128,7 +1140,8 @@ class FederationScheduler:
             view = e.client_view
             if attack is not None:
                 view = adversary.tamper_view(view, attack, self._tick, e.host, e.client,
-                                             rows=self._pair_screen_idx(e.client, e.host))
+                                             rows=self._tick_engine._pair_info(
+                                                 e.client, e.host)["screen_idx"])
             if fault is not None and fault.kind == "corrupt" and e.kind == "ppat":
                 view = injector.corrupt_view(view, fault, self._tick, e.host)
             try:

@@ -11,15 +11,14 @@ package's environment variables (``REPRO_SERVE_IMPL``,
 ``REPRO_SERVE_REPLICAS``, ``REPRO_SERVE_FAULTS``), and the training step
 keeps ``REPRO_TRAIN_IMPL`` (``resolve_train_impl``).
 
-The federation knobs keep the JAX package's ``REPRO_TICK_*`` variables.
-The port has only the serial tick engine (the JAX package's ``reference``),
-so ``None``/``auto`` resolve to it, where the JAX package's default is its
-batched engine, which that package documents as bit-identical to the serial
-one. Both scheduling disciplines (``barrier`` and ``stream``), the fault
-layer and the adversary resolve as in the JAX package. What is not ported —
-``batched`` ticks, a tick placement or residency other than ``auto`` —
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item; nothing falls
-back quietly.
+The federation knobs keep the JAX package's ``REPRO_TICK_*`` variables and
+its rules: ``resolve_tick_impl`` picks the batched tick engine unless the
+training step is the dense ``reference`` loop, ``resolve_tick_placement``
+spreads entries over the owners' home devices when more than one CUDA
+device is visible, ``resolve_tick_residency`` keeps results where they were
+computed; the scheduling discipline, the fault layer and the adversary
+resolve as in the JAX package. A bad value raises; nothing falls back
+quietly.
 """
 from __future__ import annotations
 
@@ -147,28 +146,50 @@ def resolve_train_impl(impl: Optional[str] = None, family: str = "transe",
     return impl
 
 
-#: where the federation layers the port lacks are queued (``ROADMAP.md``)
-_TICK_ENGINE_ITEM = "ROADMAP.md Queue 1 item 3 (the batched tick engine and its placement)"
-
-
-def _off(value) -> bool:
-    return value is None or str(value).strip().lower() in _FALSY + ("", "none", "auto")
-
-
-def resolve_tick_impl(impl: Optional[str] = None) -> str:
-    """The federation tick engine: always ``reference``, the serial
-    per-owner loop. ``REPRO_TICK_IMPL`` overrides; ``batched`` raises
-    (not ported)."""
+def resolve_tick_impl(impl: Optional[str] = None, family: str = "transe") -> str:
+    """The federation tick engine: ``batched`` (``core.tick_engine``: every
+    entry of a tick one program — on a CUDA device captured CUDA graphs,
+    one per entry signature — with one host sync per tick) or ``reference``
+    (the serial per-owner loop). ``REPRO_TICK_IMPL`` overrides; by default
+    ``batched``, unless the training step resolves to the dense
+    ``reference`` loop, which a tick program cannot hold."""
     if impl is None:
         impl = os.environ.get("REPRO_TICK_IMPL", "").strip().lower() or None
     if impl is None or impl == "auto":
-        return "reference"
-    if impl == "batched":
-        raise NotImplementedError(
-            f"tick_impl='batched' is not ported yet: {_TICK_ENGINE_ITEM}")
-    if impl != "reference":
+        impl = "reference" if resolve_train_impl(None, family) == "reference" else "batched"
+    if impl not in ("batched", "reference"):
         raise ValueError(f"unknown tick impl {impl!r} (batched|reference)")
     return impl
+
+
+def resolve_tick_placement(placement: Optional[str] = None) -> str:
+    """Where the batched engine runs a tick's entries: ``single`` (all on
+    the scheduler's device) or ``sharded`` (each signature bucket over the
+    owners' sticky home devices, ``core.distributed.OwnerPlacement``).
+    ``auto`` (the default) is ``sharded`` exactly when more than one CUDA
+    device is visible. ``REPRO_TICK_PLACEMENT`` overrides."""
+    if placement is None:
+        placement = os.environ.get("REPRO_TICK_PLACEMENT", "").strip().lower() or None
+    if placement is None or placement == "auto":
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        placement = "sharded" if count > 1 else "single"
+    if placement not in ("single", "sharded"):
+        raise ValueError(f"unknown tick placement {placement!r} (auto|single|sharded)")
+    return placement
+
+
+def resolve_tick_residency(residency: Optional[str] = None) -> str:
+    """What happens to a batched tick's results: ``resident`` (the default)
+    leaves each owner's new tables on the device that computed them, its
+    home under ``sharded``; ``normalize`` moves them back to the scheduler's
+    device. ``REPRO_TICK_RESIDENCY`` overrides."""
+    if residency is None:
+        residency = os.environ.get("REPRO_TICK_RESIDENCY", "").strip().lower() or None
+    if residency is None or residency == "auto":
+        residency = "resident"
+    if residency not in ("resident", "normalize"):
+        raise ValueError(f"unknown tick residency {residency!r} (auto|resident|normalize)")
+    return residency
 
 
 def resolve_tick_sync(sync: Optional[str] = None) -> str:
@@ -184,18 +205,6 @@ def resolve_tick_sync(sync: Optional[str] = None) -> str:
     if sync not in ("barrier", "stream"):
         raise ValueError(f"unknown tick sync {sync!r} (auto|barrier|stream)")
     return sync
-
-
-def refuse_tick_layers(placement=None, residency=None) -> None:
-    """Raise ``NotImplementedError`` for a tick placement or residency other
-    than ``auto``, given as an argument or through ``REPRO_TICK_PLACEMENT`` /
-    ``REPRO_TICK_RESIDENCY``: they place the batched engine's programs,
-    which the port lacks."""
-    for name, value in (("tick_placement", placement), ("tick_residency", residency)):
-        if value is None:
-            value = os.environ.get("REPRO_" + name.upper(), "").strip() or None
-        if not _off(value):
-            raise NotImplementedError(f"{name}={value!r} is not ported yet: {_TICK_ENGINE_ITEM}")
 
 
 def resolve_tick_adversary(spec=None):

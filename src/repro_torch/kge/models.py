@@ -302,7 +302,9 @@ def virtual_pad_rows(params: Params, dim: int, n_ent: int, n_rel: int) -> Params
         pads["rel_p"] = torch.zeros((n_rel, dim), dtype=torch.float32, device=dev)
     if "norm_vec" in params:
         padr = torch.ones((n_rel, dim), dtype=torch.float32, device=dev)
-        pads["norm_vec"] = padr / sqrt_rn(torch.tensor(float(dim), device=dev))
+        # ``full`` rather than ``tensor``: no host copy, so a captured
+        # CUDA graph can hold it
+        pads["norm_vec"] = padr / sqrt_rn(torch.full((), float(dim), device=dev))
     if "proj" in params:
         eye = torch.eye(dim, dtype=torch.float32, device=dev)
         pads["proj"] = eye[None].repeat(n_rel, 1, 1)

@@ -339,11 +339,16 @@ class KGEServingTier:
     @classmethod
     def for_owner(cls, sched, owner: str, **kw) -> "KGEServingTier":
         """A tier serving ``owner``'s tables out of a federation: filters
-        from the owner's train ∪ valid ∪ test, tables from its trainer, and
-        the accept hook attached."""
+        from the owner's train ∪ valid ∪ test, tables from its trainer, the
+        home slot from the scheduler's sticky owner placement (where the
+        batched tick engine keeps the owner's tables), and the accept hook
+        attached."""
         tr = sched.trainers[owner]
         kg = sched.kgs[owner]
         known = np.concatenate([kg.train, kg.valid, kg.test])
+        engine = getattr(sched, "_tick_engine", None)
+        if engine is not None and "home_slot" not in kw:
+            kw["home_slot"] = engine.placement.slot(owner)
         tier = cls(tr.params, tr.model, known, owner=owner, **kw)
         tier.attach(sched, owner)
         return tier

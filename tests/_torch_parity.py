@@ -151,6 +151,8 @@ STATS = [("A", 12, 90000, 300000), ("B", 10, 70000, 240000), ("C", 8, 60000, 200
 ALIGNS = [("A", "B", 30000), ("B", "C", 20000), ("A", "C", 18000)]
 EVENT_FIELDS = ("tick", "host", "client", "kind", "accepted", "fault", "attack", "level",
                 "owner_clock", "view_version")
+#: the port's two tick engines, each held against the JAX serial scheduler
+ENGINES = ("reference", "batched")
 
 
 def make_universes(seed=1, stats=STATS, aligns=ALIGNS):
@@ -162,9 +164,10 @@ def make_universes(seed=1, stats=STATS, aligns=ALIGNS):
             synthesize_universe(seed=seed, scale=1 / 500, kg_stats=stats, alignments=aligns))
 
 
-def _pair(universes, *, dim=16, steps=12, faults=None, **kw):
+def _pair(universes, *, dim=16, steps=12, faults=None, engine="reference", **kw):
     """(JAX scheduler, port scheduler) on the same tables and draws: the JAX
-    one with its serial engine, the port's from ``JaxSchedulerDraws``.
+    one with its serial engine, the port's with ``engine`` (its
+    ``tick_impl``) from ``JaxSchedulerDraws``.
     ``faults`` is ``(FaultPlan kwargs, table {(tick, host): Fault kwargs})``
     and builds one injector for each; every other keyword (an adversary
     spec, the defenses, ...) goes to both."""
@@ -191,7 +194,7 @@ def _pair(universes, *, dim=16, steps=12, faults=None, **kw):
     j = JaxScheduler(jkgs, dim=dim, ppat_cfg=jcfg, tick_impl="reference", **jkw)
     t = FederationScheduler(tkgs, dim=dim, ppat_cfg=PPATConfig(steps=steps, seed=0),
                             device="cpu", draws=JaxSchedulerDraws(list(tkgs), 0, jcfg, dim),
-                            **tkw)
+                            tick_impl=engine, **tkw)
     for n, tr in t.trainers.items():
         tr.params = params_from_numpy(
             {k: np.asarray(v) for k, v in j.trainers[n].params.items()}, "cpu")

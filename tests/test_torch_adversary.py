@@ -1,6 +1,7 @@
 """The port's Byzantine adversary and defenses (``core.adversary``,
 ``aggregation.robust_rows``, the scheduler's hooks) against the JAX
-package's serial scheduler (``tick_impl="reference"``) on the universe of
+package's serial scheduler (``tick_impl="reference"``), through each of
+the port's two tick engines, on the universe of
 ``tests/test_adversary.py`` (``seed=1``, ``scale=1/500``, owners A/B/C,
 d = 16, 3 PPAT rounds).
 
@@ -22,7 +23,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import _pair, assert_same, make_universes, one_torch_thread  # noqa: F401
+from _torch_parity import (  # noqa: F401 (one_torch_thread)
+    ENGINES,
+    _pair,
+    assert_same,
+    make_universes,
+    one_torch_thread,
+)
 
 from repro.core import adversary as ja
 from repro.core.aggregation import robust_rows as jax_robust_rows
@@ -164,11 +171,12 @@ def test_robust_rows_rejects_an_unknown_mode():
 
 
 # ----------------------------------------------------------- scheduler storms
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("defense", list(DEFENSES))
-def test_storm_matches_the_serial_reference(universes, defense):
+def test_storm_matches_the_serial_reference(universes, defense, engine):
     """The reference's engine-parity storm through both serial schedulers,
     held after every tick; the replay caches hold the same views."""
-    j, t = _pair(universes, steps=3, tick_adversary=ADV, **DEFENSES[defense])
+    j, t = _pair(universes, steps=3, tick_adversary=ADV, engine=engine, **DEFENSES[defense])
     j.initial_training()
     t.initial_training()
     for _ in range(3):
@@ -186,12 +194,13 @@ def test_storm_matches_the_serial_reference(universes, defense):
             np.testing.assert_allclose(ts[key][leaf], js[key][leaf], rtol=0, atol=1e-5)
 
 
-def test_poisoning_storm_flags_and_blames_the_sender(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_poisoning_storm_flags_and_blames_the_sender(universes, engine):
     """A full-strength drift storm against armed defenses: poison verdicts
     fire on attacked entries only, blame the sending client, and decay its
     reputation — tick for tick with the reference."""
     j, t = _pair(universes, steps=3, tick_adversary="drift=1.0,seed=9,strength=1.0,frac=0.4",
-                 robust_agg="median", cos_screen=0.5)
+                 robust_agg="median", cos_screen=0.5, engine=engine)
     j.initial_training()
     t.initial_training()
     for _ in range(4):
@@ -203,7 +212,8 @@ def test_poisoning_storm_flags_and_blames_the_sender(universes):
     assert t._reputation and set(t._reputation) <= {e.client for e in poisons}
 
 
-def test_inert_adversary_is_bit_identical(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_inert_adversary_is_bit_identical(universes, engine):
     """``tick_adversary="on"`` changes no decision and no bit of any table."""
     from repro_torch.core.federation import FederationScheduler
     from repro_torch.core.ppat import PPATConfig
@@ -212,7 +222,7 @@ def test_inert_adversary_is_bit_identical(universes):
     for adv in (None, "on"):
         s = FederationScheduler(universes[1], dim=16, ppat_cfg=PPATConfig(steps=3, seed=0),
                                 local_epochs=2, update_epochs=1, seed=0, device="cpu",
-                                tick_adversary=adv)
+                                tick_adversary=adv, tick_impl=engine)
         s.initial_training()
         s.run(max_ticks=2)
         runs.append(s)

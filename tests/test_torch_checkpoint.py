@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (  # noqa: F401 (one_torch_thread)
+    ENGINES,
     _pair,
     _score_tol,
     assert_same,
@@ -96,8 +97,9 @@ def _cut_and_resume(make, tmp_path, *, first=2, then=2, **run_kw):
     return a, b
 
 
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("source", ["generators", "generator-draws"])
-def test_resume_mid_storm_is_bit_equal(universes, tmp_path, source):
+def test_resume_mid_storm_is_bit_equal(universes, tmp_path, source, engine):
     """Cut after two storm ticks, with the replay cache filled and the
     reputation decayed: the resumed run re-ships the same stale views."""
     kgs = universes[1]
@@ -105,20 +107,22 @@ def test_resume_mid_storm_is_bit_equal(universes, tmp_path, source):
     def make():
         draws = GeneratorDraws(11, PPATConfig(steps=3, seed=0), 16) \
             if source == "generator-draws" else None
-        return _fed(kgs, draws=draws, **STORM)
+        return _fed(kgs, draws=draws, tick_impl=engine, **STORM)
 
     a, b = _cut_and_resume(make, tmp_path)
     assert a._adversary._stale and sorted(b._adversary._stale) == sorted(a._adversary._stale)
     assert any(e.attack == "replay" for e in b.events)
 
 
-def test_resume_mid_quarantine_is_bit_equal(universes, tmp_path):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_resume_mid_quarantine_is_bit_equal(universes, tmp_path, engine):
     """Cut while a client sits in quarantine with deferred offers and a
     decayed reputation: release, backoff and re-queue resume exactly."""
     from repro_torch.core.faults import Fault, FaultInjector, FaultPlan
 
     def make():
-        return _fed(universes[1], retry_budget=1, quarantine_ticks=3, tick_faults=FaultInjector(
+        return _fed(universes[1], retry_budget=1, quarantine_ticks=3, tick_impl=engine,
+                    tick_faults=FaultInjector(
             FaultPlan(table={(1, "A"): Fault("corrupt", rows=10_000)})), **STORM)
 
     path = str(tmp_path / "q.npz")
@@ -135,20 +139,23 @@ def test_resume_mid_quarantine_is_bit_equal(universes, tmp_path):
     assert not a._quarantine_until  # the release happened after the cut
 
 
-def test_resume_mid_stream_is_bit_equal(universes, tmp_path):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_resume_mid_stream_is_bit_equal(universes, tmp_path, engine):
     """A checkpoint between streamed passes (bound 0 keeps the staleness
     gate firing) restores the clocks and the view versions."""
-    a, b = _cut_and_resume(lambda: _fed(universes[1]), tmp_path, tick_sync="stream",
+    a, b = _cut_and_resume(lambda: _fed(universes[1], tick_impl=engine), tmp_path,
+                           tick_sync="stream",
                            staleness_bound=0)
     assert any(e.fault == "stale" for e in a.events)
     assert [e.level for e in a.events if e.tick > 2] == [e.level for e in b.events]
 
 
-def test_resumed_tail_matches_the_reference_resume(universes, tmp_path):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_resumed_tail_matches_the_reference_resume(universes, tmp_path, engine):
     """The reference's ``test_resume_mid_storm_bit_parity`` on its serial
     engine, and the same cut in the port from the reference's draws: the
     two resumed tails agree."""
-    j, t = _pair(universes, steps=3, **STORM)
+    j, t = _pair(universes, steps=3, engine=engine, **STORM)
     j.initial_training()
     t.initial_training()
     j.run(max_ticks=2, tick_impl="reference")
@@ -157,7 +164,7 @@ def test_resumed_tail_matches_the_reference_resume(universes, tmp_path):
     jpath, tpath = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
     jax_save_scheduler(jpath, j)
     save_scheduler(tpath, t)
-    j2, t2 = _pair(universes, steps=3, **STORM)
+    j2, t2 = _pair(universes, steps=3, engine=engine, **STORM)
     jax_restore(jpath, j2)
     restore_scheduler(tpath, t2)
     assert sorted(t2._adversary._stale) == sorted(j2._adversary._stale)
@@ -182,10 +189,9 @@ def test_sidecar_matches_the_reference(universes, tmp_path):
         with np.load(tmp_path / f"{name}.npz") as z:
             side[name] = json.loads(str(z["__metadata__"]))["scheduler"]
     js, ts = side["j"], side["t"]
-    assert "placement" in js and "placement" not in ts
     for f in ("tick", "owners", "state", "queue", "epsilons", "accountant", "retries",
               "peer_failures", "deferred", "quarantine_until", "reputation",
-              "adversary_stale", "rng"):
+              "adversary_stale", "placement", "rng"):
         assert ts[f] == js[f], f
     for f in ("owner_clock", "view_version"):
         assert ts["stream"][f] == js["stream"][f], f

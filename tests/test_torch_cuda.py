@@ -661,6 +661,163 @@ def test_scheduler_on_the_card_equals_the_cpu(cuda_dev, monkeypatch, metric):
             torch.testing.assert_close(a.trainers[n].params[k].cpu(), v, atol=1e-5, rtol=0)
 
 
+def _tick_fed(dev, impl, families=None, **kw):
+    """Three owners of the small universe on ``dev`` from fixed start tables
+    and a ``GeneratorDraws`` of seed 47, on the tick engine ``impl``."""
+    from repro_torch.core.federation import FederationScheduler, GeneratorDraws
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.data import synthesize_universe
+
+    uni = synthesize_universe(seed=1, scale=1 / 500)
+    kgs = {n: uni[n] for n in ("Dbpedia", "Yago", "Geonames")}
+    cfg = PPATConfig(steps=12, seed=0)
+    s = FederationScheduler(kgs, dim=16, ppat_cfg=cfg, local_epochs=2, update_epochs=1, seed=0,
+                            device=dev, draws=GeneratorDraws(47, cfg, 16), tick_impl=impl,
+                            families=families, score_metric="hit10", **kw)
+    g = torch.Generator().manual_seed(53)
+    for tr in s.trainers.values():
+        tr.params = {k: (torch.rand(v.shape, generator=g) - 0.5).to(dev)
+                     for k, v in tr.params.items()}
+    return s
+
+
+TICK_KEYS = ("tick", "host", "client", "kind", "accepted", "fault", "attack", "owner_clock",
+             "view_version", "score_before", "score_after", "epsilon")
+
+
+def _same_runs(a, b, atol=0.0):
+    assert [[repr(getattr(e, k)) for k in TICK_KEYS] for e in a.events] == \
+        [[repr(getattr(e, k)) for k in TICK_KEYS] for e in b.events]
+    for n in a.trainers:
+        for k, v in a.trainers[n].params.items():
+            w = b.trainers[n].params[k].to(v.device)
+            if atol:
+                torch.testing.assert_close(v, w, atol=atol, rtol=0)
+            else:
+                assert torch.equal(v, w), f"{n}.{k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("families", [None, {"Dbpedia": "transh", "Yago": "transe",
+                                             "Geonames": "transd"}], ids=["transe", "mixed"])
+def test_batched_on_the_card_equals_serial_on_the_card(cuda_dev, families):
+    """Two ticks through the batched engine (captured graphs, the SVD and
+    the TransH/D retrains as eager segments) and through the serial engine
+    on the card from the same draws: every decision, score and epsilon,
+    and every table bit for bit."""
+    from repro_torch.core import tick_engine
+
+    tick_engine.clear_tick_programs()
+    runs = {}
+    for impl in ("reference", "batched"):
+        s = _tick_fed(cuda_dev, impl, families)
+        s.initial_training()
+        s.run(max_ticks=2)
+        runs[impl] = s
+    _same_runs(runs["reference"], runs["batched"])
+    st = runs["batched"]._tick_engine.stats
+    assert st["entries"] == 6 and st["captured"] > 0
+    assert (st["eager_segments"] > 0) and (families is None or st["eager_segments"] > 6)
+
+
+@pytest.mark.cuda
+def test_a_replay_is_bit_equal_to_the_eager_run(cuda_dev):
+    """The first scheduler's entries run eagerly and capture their graphs;
+    a second scheduler from the same tables and draws replays every one of
+    them: the same events and tables, bit for bit, and no new capture."""
+    from repro_torch.core import tick_engine
+
+    tick_engine.clear_tick_programs()
+    a = _tick_fed(cuda_dev, "batched")
+    a.initial_training()
+    a.run(max_ticks=2)
+    graphs = tick_engine.tick_graph_stats()["graphs"]
+    assert graphs == a._tick_engine.stats["captured"] > 0
+    b = _tick_fed(cuda_dev, "batched")
+    b.initial_training()
+    b.run(max_ticks=2)
+    _same_runs(a, b)
+    assert b._tick_engine.stats["captured"] == 0
+    assert b._tick_engine.stats["replays"] == graphs
+    assert tick_engine.tick_graph_stats()["graphs"] == graphs
+
+
+@pytest.mark.cuda
+def test_a_second_tick_replays_without_a_capture(cuda_dev):
+    """Four equal-shaped owners: the first handshake captures, the other
+    three replay; the next handshake tick captures nothing."""
+    from repro_torch.core import tick_engine
+    from repro_torch.core.federation import FederationScheduler
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.data import equal_shape_universe
+
+    tick_engine.clear_tick_programs()
+    kgs = equal_shape_universe(4, entities=120, relations=6, triples=800, shared=32, seed=3)
+    s = FederationScheduler(kgs, dim=16, ppat_cfg=PPATConfig(steps=8, seed=0), local_epochs=2,
+                            update_epochs=1, seed=0, use_virtual=False, score_max_test=24,
+                            device=cuda_dev)
+    s.initial_training()
+    s.best_score = {n: -1.0 for n in kgs}  # every handshake is accepted: offers keep coming
+    s.run(max_ticks=1)
+    first = dict(s._tick_engine.last)
+    assert first["entries"] == 4 and first["captured"] == 2 and first["replays"] == 2 * 3
+    s.run(max_ticks=1)
+    assert s._tick_engine.last["entries"] == 4 and s._tick_engine.last["captured"] == 0
+    assert s._tick_engine.last["replays"] == 2 * 4
+    assert tick_engine.tick_program_cache_size() == 1
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_replays(cuda_dev):
+    """A replayed tick adds the launches its graphs captured: one epoch
+    kernel per retrain epoch and two rank launches per 128 scored triples
+    for every entry, as in an eager tick."""
+    from repro_torch.core import tick_engine
+
+    tick_engine.clear_tick_programs()
+    warm = _tick_fed(cuda_dev, "batched")
+    warm.initial_training()
+    warm.run(max_ticks=2)
+    s = _tick_fed(cuda_dev, "batched")
+    s.initial_training()
+    STEP_LAUNCHES["sparse_sgd_step"] = LAUNCHES["fused_ranks"] = 0
+    s.run(max_ticks=2)
+    entries = [e for e in s.events if e.kind != "init"]
+    assert s._tick_engine.stats["captured"] == 0 and s._tick_engine.stats["replays"] > 0
+    assert STEP_LAUNCHES["sparse_sgd_step"] == len(entries) * s.update_epochs
+    want = sum(2 * -(-min(len(s.kgs[e.host].valid), s.score_max_test) // 128) for e in entries)
+    assert want > 0 and LAUNCHES["fused_ranks"] == want
+
+
+@pytest.mark.cuda
+def test_a_capture_that_cannot_succeed_raises(cuda_dev, monkeypatch):
+    """A stage that reads back to the host cannot be captured: the tick
+    raises ``GraphCaptureError`` (nothing runs eagerly in the graph's
+    place), no event is recorded, no owner is left busy and the plan's
+    offers are back in their queues."""
+    from repro_torch.core import tick_engine
+    from repro_torch.core.federation import NodeState
+
+    tick_engine.clear_tick_programs()
+    strip = tick_engine._STAGES["strip"]
+
+    def syncing(s, spec):
+        float(s["padded/ent"].sum())  # a host read: illegal while capturing
+        return strip(s, spec)
+
+    monkeypatch.setitem(tick_engine._STAGES, "strip", syncing)
+    s = _tick_fed(cuda_dev, "batched")
+    s.initial_training()
+    queues = {n: sorted(q) for n, q in s.queue.items()}
+    n_events = len(s.events)
+    with pytest.raises(tick_engine.GraphCaptureError, match="did not capture"):
+        s.run(max_ticks=1)
+    assert len(s.events) == n_events
+    assert all(st is NodeState.READY for st in s.state.values())
+    assert {n: sorted(q) for n, q in s.queue.items()} == queues
+    tick_engine.clear_tick_programs()
+
+
 #: the JAX package's resume-test storm (``tests/test_adversary.py``), defended
 STORM = dict(tick_adversary="drift=0.4,replay=0.6,seed=2,strength=0.9,frac=0.5",
              robust_agg="median", cos_screen=0.3)

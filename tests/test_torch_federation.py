@@ -1,6 +1,6 @@
-"""The port's ``FederationScheduler`` (Alg. 1 with its fault layer) against
-the JAX package's serial scheduler (``tick_impl="reference"``, barrier
-ticks) on the universe of ``tests/test_federation.py`` (``seed=1``,
+"""The port's ``FederationScheduler`` (Alg. 1 with its fault layer), on
+each of its two tick engines, against the JAX package's serial scheduler
+(``tick_impl="reference"``, barrier ticks) on the universe of ``tests/test_federation.py`` (``seed=1``,
 ``scale=1/500``, owners A/B/C).
 
 Both schedulers start from the same tables (the JAX trainers' initial
@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (  # noqa: F401 (one_torch_thread)
+    ENGINES,
     JaxSchedulerDraws,
     _pair,
     _score_tol,
@@ -58,9 +59,11 @@ def _bit_equal(params, snap):
     return all(torch.equal(params[k], snap[k]) for k in snap)
 
 
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("metric", ["accuracy", "hit10"])
-def test_run_matches_the_serial_reference(universes, metric):
-    j, t = _pair(universes, local_epochs=4, update_epochs=2, score_metric=metric)
+def test_run_matches_the_serial_reference(universes, metric, engine):
+    j, t = _pair(universes, local_epochs=4, update_epochs=2, score_metric=metric,
+                 engine=engine)
     assert t.initial_training() == pytest.approx(j.initial_training(), abs=_score_tol(t, "A"))
     assert_same(j, t)
     for _ in range(2):  # run(max_ticks=2), held after each tick
@@ -74,8 +77,9 @@ def test_run_matches_the_serial_reference(universes, metric):
     assert t.sim_makespan() == max(t.sim_times().values()) > 0
 
 
-def test_rejected_backtrack_restores_bit_for_bit(universes):
-    j, t = _pair(universes, steps=3)
+@pytest.mark.parametrize("engine", ENGINES)
+def test_rejected_backtrack_restores_bit_for_bit(universes, engine):
+    j, t = _pair(universes, steps=3, engine=engine)
     j.initial_training()
     t.initial_training()
     j.score_fn = t.score_fn = lambda name: -1.0  # every backtrack rejects
@@ -89,11 +93,12 @@ def test_rejected_backtrack_restores_bit_for_bit(universes):
         assert _bit_equal(tr.params, snaps[n]), n
 
 
-def test_quiescence_without_self_train(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_quiescence_without_self_train(universes, engine):
     """With self-training off and a score that never improves, every owner
     drains its queue and sleeps: run() stops before max_ticks, as in the
     reference."""
-    j, t = _pair(universes, steps=2, score_fn=lambda name: 0.0)
+    j, t = _pair(universes, steps=2, score_fn=lambda name: 0.0, engine=engine)
     for s in (j, t):
         s.best_score = {n: 1.0 for n in s.trainers}
         s.best_snapshot = {n: s.trainers[n].snapshot() for n in s.trainers}
@@ -135,13 +140,14 @@ def test_broadcast(universes, case):
             assert set(t.queue[n]) == t._queued[n]
 
 
-def test_frozen_views_are_copies_under_the_fused_step(universes, monkeypatch):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_frozen_views_are_copies_under_the_fused_step(universes, monkeypatch, engine):
     """Tick 1 plans A←B, B←A, C←A: A hosts the first handshake and is the
     client of the third. The port's ``fused`` step (and the KGEmb update)
     write tables in place, so C must read the copy of A frozen at plan time:
     no frozen view shares storage with its owner's live tables, and the
     tick equals the reference's (run with its own default step)."""
-    j, t = _pair(universes)
+    j, t = _pair(universes, engine=engine)
     j.initial_training()
     j.run(max_ticks=1)
     monkeypatch.setenv("REPRO_TRAIN_IMPL", "fused")
@@ -181,10 +187,11 @@ FAULT_CASES = {
 }
 
 
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("case", list(FAULT_CASES))
-def test_faults_match_the_reference(universes, case):
+def test_faults_match_the_reference(universes, case, engine):
     plan, table, kw, ticks = FAULT_CASES[case]
-    j, t = _pair(universes, steps=3, faults=(plan, table), **kw)
+    j, t = _pair(universes, steps=3, faults=(plan, table), engine=engine, **kw)
     j.initial_training()
     t.initial_training()
     snaps = {n: {k: v.clone() for k, v in t.best_snapshot[n].items()} for n in t.trainers}
@@ -248,13 +255,14 @@ def test_backoff_into_quarantine_and_release(universes):
     assert t.state["A"] is NodeState.READY and "A" not in t._quarantine_until
 
 
-def test_tier_follows_the_scheduler(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_tier_follows_the_scheduler(universes, engine):
     """``KGEServingTier.for_owner`` on the real port scheduler: version 1 at
     attach, one more for each of the owner's accepts, and requests served
     from the owner's current tables."""
     _, tkgs = universes
     t = FederationScheduler(tkgs, dim=16, ppat_cfg=PPATConfig(steps=3, seed=0), local_epochs=2,
-                            update_epochs=2, seed=0, device="cpu")
+                            update_epochs=2, seed=0, device="cpu", tick_impl=engine)
     t.initial_training()
     tier = KGEServingTier.for_owner(t, "A", device=CPU, block_e=64)
     assert tier.owner == "A" and tier.version == 1
@@ -271,37 +279,6 @@ def test_tier_follows_the_scheduler(universes):
                               block_e=64).rank_tails(q[:, 0], q[:, 1], q[:, 2])
     np.testing.assert_array_equal(req.result, want)
     assert req.version == tier.version
-
-
-@pytest.mark.parametrize("kw,env,where", [
-    ({"tick_impl": "batched"}, None, "Queue 1 item 3"),
-    ({"tick_placement": "sharded"}, None, "Queue 1 item 3"),
-    ({"tick_residency": "resident"}, None, "Queue 1 item 3"),
-    ({}, ("REPRO_TICK_IMPL", "batched"), "Queue 1 item 3"),
-    ({}, ("REPRO_TICK_PLACEMENT", "single"), "Queue 1 item 3"),
-], ids=lambda v: str(v))
-def test_unported_knobs_raise(universes, monkeypatch, kw, env, where):
-    """What the port lacks raises, at construction and at ``run``; it never
-    falls back to the serial engine quietly."""
-    _, tkgs = universes
-    base = dict(dim=8, ppat_cfg=PPATConfig(steps=1), device="cpu")
-    if env:
-        monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match=where):
-        FederationScheduler(tkgs, **base, **kw)
-    monkeypatch.delenv(env[0] if env else "REPRO_TICK_IMPL", raising=False)
-    s = FederationScheduler(tkgs, **base)
-    run_kw = {k: v for k, v in kw.items() if k.startswith("tick_")}
-    if env:
-        monkeypatch.setenv(*env)
-    if run_kw or env:
-        with pytest.raises(NotImplementedError, match=where):
-            s.run(max_ticks=1, **run_kw)
-    assert s.events == [] and s._tick == 0
-    with pytest.raises(ValueError, match="unknown tick impl"):
-        FederationScheduler(tkgs, **base, tick_impl="bogus")
-    with pytest.raises(ValueError, match="unknown aggregation"):
-        FederationScheduler(tkgs, **base, aggregation="sum")
 
 
 #: (knob, accepted value, bad value, the reference's error) — each knob the

@@ -14,7 +14,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py"]
+    REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
+    REPO / "examples" / "federated_11kg_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -56,7 +57,8 @@ def test_port_files_exist():
                  "src/repro_torch/core/adversary.py", "src/repro_torch/core/attacks.py",
                  "src/repro_torch/checkpoint/__init__.py",
                  "src/repro_torch/checkpoint/checkpointer.py",
-                 "examples/quickstart_torch.py"):
+                 "src/repro_torch/core/tick_engine.py", "src/repro_torch/core/distributed.py",
+                 "examples/quickstart_torch.py", "examples/federated_11kg_torch.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
     assert (REPO / "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu").is_file()

@@ -1,5 +1,5 @@
-"""Streamed scheduling in the port (``tick_sync="stream"`` on the serial
-engine) against the JAX package's serial scheduler (``tick_impl=
+"""Streamed scheduling in the port (``tick_sync="stream"`` on each of its
+two tick engines) against the JAX package's serial scheduler (``tick_impl=
 "reference"``), and against the port's own barrier, on the universes of
 ``tests/test_streaming.py`` (owners A/B/C at ``seed=1``, and the solo owner
 S at ``seed=2``; scale 1/500, d = 16, 3 PPAT rounds).
@@ -12,7 +12,13 @@ table bit for bit.
 """
 import pytest
 import torch
-from _torch_parity import _pair, assert_same, make_universes, one_torch_thread  # noqa: F401
+from _torch_parity import (  # noqa: F401 (one_torch_thread)
+    ENGINES,
+    _pair,
+    assert_same,
+    make_universes,
+    one_torch_thread,
+)
 
 from repro.kernels.dispatch import resolve_tick_sync as jax_resolve_tick_sync
 from repro_torch.core.federation import FederationScheduler, NodeState
@@ -75,11 +81,12 @@ def test_staleness_bound_validation(universes):
     assert s._tick == 0 and s.events == []
 
 
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("bound", [0, 10_000], ids=["bound0", "bound-large"])
-def test_stream_matches_the_serial_reference(universes, bound):
+def test_stream_matches_the_serial_reference(universes, bound, engine):
     """Both schedulers stream the same passes: the same levels, stale
     audits and re-offers, the PPAT draws taken in plan order."""
-    j, t = _pair(universes, steps=3)
+    j, t = _pair(universes, steps=3, engine=engine)
     j.initial_training()
     t.initial_training()
     for _ in range(3):
@@ -90,13 +97,14 @@ def test_stream_matches_the_serial_reference(universes, bound):
     assert any(e.fault == "stale" for e in t.events) == (bound == 0)
 
 
-def test_stream_mixed_storm_matches_the_serial_reference(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_stream_mixed_storm_matches_the_serial_reference(universes, engine):
     """A fault storm and a drift attack under streaming, with the median
     defense: the per-entry draws hold level by level."""
     j, t = _pair(universes, steps=3, faults=({"crash": 0.2, "straggle": 0.1, "corrupt": 0.1,
                                               "seed": 7, "until": 3, "delay": 1e6}, None),
                  tick_adversary="drift=0.4,seed=9,strength=1.0,frac=0.4", tick_deadline=1e5,
-                 robust_agg="median")
+                 robust_agg="median", engine=engine)
     j.initial_training()
     t.initial_training()
     for _ in range(4):
@@ -106,13 +114,14 @@ def test_stream_mixed_storm_matches_the_serial_reference(universes):
     assert any(e.fault for e in t.events) and any(e.attack for e in t.events)
 
 
-def test_stream_large_bound_equals_the_barrier(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_stream_large_bound_equals_the_barrier(universes, engine):
     """With a bound no pass exceeds, streaming only reorders: the port's
     streamed run takes its barrier run's decisions bit for bit, from its
     own generators; then both switch back to barrier ticks and agree."""
     runs = {}
     for sync in ("barrier", "stream"):
-        s = _fed(universes[1])
+        s = _fed(universes[1], tick_impl=engine)
         s.initial_training()
         s.run(max_ticks=3, tick_sync=sync, staleness_bound=10_000)
         runs[sync] = s
@@ -129,12 +138,13 @@ def test_stream_large_bound_equals_the_barrier(universes):
     _same_tables(bar, strm, "after switching back to barrier")
 
 
-def test_stream_bound0_serial_plan_is_the_barrier_in_order(solo):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_stream_bound0_serial_plan_is_the_barrier_in_order(solo, engine):
     """One owner plans dependency-serial passes: bound 0 reproduces the
     barrier in order, with no stale event."""
     runs = {}
     for sync in ("barrier", "stream"):
-        s = _fed(solo)
+        s = _fed(solo, tick_impl=engine)
         s.initial_training()
         s.run(max_ticks=3, tick_sync=sync, staleness_bound=0)
         runs[sync] = s
@@ -143,10 +153,11 @@ def test_stream_bound0_serial_plan_is_the_barrier_in_order(solo):
     _same_tables(runs["barrier"], runs["stream"], "on a dependency-serial plan")
 
 
-def test_stream_bound0_fires_stale_and_reoffers(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_stream_bound0_fires_stale_and_reoffers(universes, engine):
     """Bound 0 on an aligned mesh: a later-level entry whose client
     accepted earlier in the pass is audited ``stale`` and re-served."""
-    s = _fed(universes[1])
+    s = _fed(universes[1], tick_impl=engine)
     s.initial_training()
     s.run(max_ticks=6, tick_sync="stream", staleness_bound=0)
     stale = [e for e in s.events if e.fault == "stale"]
@@ -160,7 +171,8 @@ def test_stream_bound0_fires_stale_and_reoffers(universes):
     assert not s._deferred
 
 
-def test_stream_draws_ppat_inputs_in_plan_order(universes):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_stream_draws_ppat_inputs_in_plan_order(universes, engine):
     """A streamed pass asks its draw source for every handshake's PPAT
     inputs in plan order before any level trains, skipping entries a fault
     kills before their draw; a barrier tick asks as each entry runs."""
@@ -175,7 +187,7 @@ def test_stream_draws_ppat_inputs_in_plan_order(universes):
         src.ppat = lambda h, c, nx, ny, ppat=ppat, log=log: (log.append(("ppat", h, c)),
                                                              ppat(h, c, nx, ny))[1]
         src.train = lambda o, *a, train=train, log=log: (log.append(("train", o)), train(o, *a))[1]
-        s = _fed(universes[1], draws=src,
+        s = _fed(universes[1], draws=src, tick_impl=engine,
                  tick_faults=FaultInjector(FaultPlan(table={(1, "B"): Fault("crash")})))
         s.initial_training()
         del log[:]
