@@ -11,7 +11,9 @@ and Dbpedia with a serving tier attached, drives a poisoning storm
 against the Byzantine defenses over the same owners, cut by a checkpoint
 and resumed, and holds the batched tick engine (captured CUDA graphs)
 against the serial one at that width, over the paper's eleven owners and
-on the 11-KG example's universe.
+on the 11-KG example's universe, then runs the paper's two-party topology
+(the PPAT exchange between two processes, the row-sharded KGE step) at
+full width.
 
     python3 chip_smoke.py            # one CUDA card; about five minutes on an H100
 
@@ -204,6 +206,22 @@ Phases (every failed check ends the run with a non-zero exit):
    draws and start tables (events equal, epsilon bit-equal, tables within
    1e-5), then ``tick_placement="sharded"`` over ``OwnerPlacement((cuda:0,
    cpu))`` against the single run (events equal, tables within 1e-5).
+18. the two-party topology (``core/parties.py``), two ranks spawned by
+   ``run_parties`` over ``gloo``, both on ``cuda:0``. a. The exchange at
+   phase 9's width: 123,853 aligned rows at d = 100, Y a planted rotation
+   of X plus 0.01 noise, each party building its own side from ``--seed``,
+   ``PPATConfig()``'s 200 rounds: the client's W, the host's
+   discriminators, every round's vote counts and epsilon bit-equal to the
+   in-process stepwise handshake (``PPATClient``, ``PPATHost.step``) on the
+   same draws; the pipe carried exactly 2 tensors of 32 x 100 fp32 a
+   round. Median ms a round both ways, the pipe's ms (on the client, from
+   the send to the gradient back); procrustes and CSLS retrieval over the
+   aligned rows equal to the in-process run's, the cosine launches
+   counted. b. The sharded step at Dbpedia's size (TransE L1, E = 491,078,
+   R = 14,085, d = 100, ``make_kg``'s triples, margin 2, lr 0.3, batch
+   128), 300 steps at world 2, then at world 1 from the same draws: the
+   gathered tables within 1e-5, every loss finite; median ms a step,
+   bytes a step and a rank's shard bytes.
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -215,7 +233,7 @@ launch lasts tens of ms, and its ``ms`` is the device time of one (as
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6, 9, 12, 13, 15, 16 and 17 at a tiny size (the
+``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15-18 at a tiny size (the
 LM cards reduced) on the CPU with the plain versions (no kernels, no
 timings) and also exits non-zero.
 """
@@ -312,6 +330,10 @@ EXAMPLE_SCALE = 400      # phase 17c: ``examples/federated_11kg_torch.py``'s def
 #: phase 17c's cut of the example's schedule (its defaults: 100 PPAT rounds,
 #: 100 local and 30 update epochs)
 EXAMPLE_CUT = dict(dim=32, ppat_steps=12, local_epochs=2, update_epochs=1)
+#: phase 18: one card, so both ranks share it over gloo
+PARTY_BACKEND = "gloo"
+#: phase 18b: ``examples/distributed_fkge_torch.py``'s sharded step
+SHARDED = dict(batch=128, lr=0.3, margin=2.0, steps=300)
 
 
 class SmokeFailure(RuntimeError):
@@ -2987,6 +3009,283 @@ def engines_example(torch, np, dev, args, scale=EXAMPLE_SCALE):
     return out
 
 
+# ------------------------------------------------------------ phase 18
+def party_side(torch, dev, seed, n, rank):
+    """Phase 18a's aligned rows, planted as phase 9 plants them: the
+    client's X (rank 0) uniform in ±6/√d like a fresh KGE table's rows, the
+    host's Y (rank 1) = X·Q + 0.01·N(0, 1) with Q a seeded random
+    orthogonal matrix. Each party builds only its own side from the seed
+    (the host rebuilds X to plant Y); nothing but the pipe moves between
+    them."""
+    g = torch.Generator().manual_seed(seed + 41)
+    x = ((torch.rand((n, DIM), generator=g) * 2 - 1) * (6.0 / DIM ** 0.5)).to(dev)
+    if rank == 0:
+        return x
+    q, _ = torch.linalg.qr(torch.randn(DIM, DIM, generator=g))
+    return x @ q.to(dev) + 0.01 * torch.randn((n, DIM), generator=g).to(dev)
+
+
+def party_ids(np, cfg, n, rank):
+    """Every round's batch ids of one party, from the numpy stream its
+    in-process counterpart samples (``PPATClient``: ``cfg.seed + 29``,
+    ``PPATHost``: ``cfg.seed + 17``)."""
+    rng = np.random.default_rng(cfg.seed + (29 if rank == 0 else 17))
+    return np.stack([rng.integers(0, n, cfg.batch) for _ in range(cfg.steps)])
+
+
+def party_draws(torch, dev, seed, cfg):
+    """The exchange's start state (every role's, as ``init_distributed_ppat``
+    makes it) and the host's vote noise (steps, 2, B)."""
+    from repro_torch.core.distributed import init_distributed_ppat
+    from repro_torch.core.pate import laplace_noise
+
+    state = init_distributed_ppat(torch.Generator(device=dev).manual_seed(seed + 31), DIM, cfg)
+    noise = laplace_noise(torch.Generator(device=dev).manual_seed(seed + 43),
+                          (cfg.steps, 2, cfg.batch))
+    return state, noise
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_batches(np, seed, sizes, steps):
+    """Phase 18b's global batches (steps, B, 3): positives from the
+    Dbpedia-sized store of ``make_kg`` (phase 6's), negatives by
+    ``corrupt_triples``, both from one numpy stream."""
+    from repro_torch.kge.data import corrupt_triples
+
+    e, r, n = sizes
+    kg = make_kg(np, seed, e, r, draw_known(np, seed, e, r, n))
+    rng = np.random.default_rng(seed + 53)
+    pos = np.stack([kg.train[rng.integers(0, len(kg.train), SHARDED["batch"])]
+                    for _ in range(steps)])
+    return pos, np.stack([corrupt_triples(rng, p, e) for p in pos])
+
+
+def sharded_run(torch, group, model, seed, pos, neg):
+    """``len(pos)`` sharded steps on this rank from the seeded tables (each
+    rank keeps its shard of them), each step timed between synchronises
+    with the share spent in the group's calls (staging copies and waiting
+    for the peer included); then the gathered tables."""
+    from repro_torch.core import distributed as pd
+    from repro_torch.kge.models import init_kge
+
+    dev = group.device
+    shard = pd.shard_params(init_kge(seed + 47, model, device=dev), group)
+    step = pd.make_sharded_kge_step(group, model, lr=SHARDED["lr"])
+    before = group.traffic.snapshot()
+    ms, comm_ms, losses = [], [], []
+    for s in range(len(pos)):
+        sync(torch, dev)
+        t0, c0 = time.perf_counter(), group.traffic.seconds
+        shard, loss = step(shard, pos[s], neg[s])
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        comm_ms.append((group.traffic.seconds - c0) * 1e3)
+        losses.append(loss)
+    after = group.traffic.snapshot()
+    return {"ms": ms, "comm_ms": comm_ms, "losses": torch.stack(losses).cpu().numpy(),
+            "tensors": after["tensors"] - before["tensors"],
+            "bytes": after["bytes"] - before["bytes"],
+            "shard_bytes": sum(t.numel() * t.element_size() for t in shard.values()),
+            "params": pd.gather_params(shard, group)}
+
+
+def party_ranks(group, seed, sizes):
+    """Phase 18 on one of two ranks (``run_parties``): a. the exchange's
+    rounds, each timed between synchronises, with the pipe's share (on the
+    client: from the send to the gradient back); b. the sharded step at
+    world 2, then on rank 0 the same function at world 1 (a group of one
+    party) from the same draws, and the largest difference between the
+    gathered tables."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as pd
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.kge.models import KGEModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, rank = group.device, group.rank
+    n, rounds, kg_sizes, kge_steps = sizes
+    cfg = PPATConfig(steps=rounds)
+    batches = party_side(torch, dev, seed, n, rank)[
+        torch.as_tensor(party_ids(np, cfg, n, rank), device=dev)]
+    state, noise = party_draws(torch, dev, seed, cfg)
+    state = pd.role_state(state, rank)
+    step = pd.ppat_exchange_step(group, cfg)
+    hist = {"n0": [], "n1": [], "gen_loss": []}
+    round_ms, pipe_ms = [], []
+    for s in range(cfg.steps):
+        sync(torch, dev)
+        t0, w0 = time.perf_counter(), group.traffic.seconds
+        state, metrics, votes = step(state, batches[s], noise[s] if rank == 1 else None)
+        sync(torch, dev)
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        pipe_ms.append((group.traffic.seconds - w0) * 1e3)
+        if votes is not None:
+            hist["n0"].append(votes[0])
+            hist["n1"].append(votes[1])
+            hist["gen_loss"].append(metrics["gen_loss"])
+    out = {"exchange": {"state": state, "traffic": group.traffic.snapshot(),
+                        "round_ms": round_ms, "pipe_ms": pipe_ms,
+                        **({k: torch.stack(v) for k, v in hist.items()} if rank == 1 else {})}}
+    del batches
+
+    e, r, _ = kg_sizes
+    model = KGEModel("transe", e, r, DIM, margin=SHARDED["margin"])
+    pos, neg = sharded_batches(np, seed, kg_sizes, kge_steps)
+    res = sharded_run(torch, group, model, seed, pos, neg)
+    tables = res.pop("params")
+    out["sharded"] = res
+    if rank == 0:
+        solo = sharded_run(torch, pd.make_party_group(0, 1, backend=group.backend, device=dev),
+                           model, seed, pos, neg)
+        out["sharded_err"] = max(float((tables[k] - solo["params"][k]).abs().max())
+                                 for k in ("ent", "rel"))
+        del solo["params"]
+        out["sharded_world1"] = solo
+    return out
+
+
+def exchange_in_process(torch, np, dev, seed, cfg, n):
+    """The same rounds in this process through ``PPATClient`` and
+    ``PPATHost.step`` (the stepwise handshake) from the same draws, each
+    round timed between synchronises; the per-round vote counts the host's
+    accountant took."""
+    from repro_torch.core.parties import HOST_KEYS
+    from repro_torch.core.ppat import PPATClient, PPATHost
+
+    x, y = party_side(torch, dev, seed, n, 0), party_side(torch, dev, seed, n, 1)
+    state, noise = party_draws(torch, dev, seed, cfg)
+    client = PPATClient(DIM, x, cfg)
+    host = PPATHost(None, DIM, y, cfg, params={k: state[k] for k in HOST_KEYS})
+    votes = []
+    update = host.accountant.update
+    host.accountant.update = lambda n0, n1: (votes.append((n0, n1)), update(n0, n1))
+    ms = []
+    for s in range(cfg.steps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        xb, adv = client.sample_batch()
+        grad, _ = host.step(adv, noise[s])
+        client.apply_grad(xb, grad)
+        sync(torch, dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return x, y, client, host, votes, ms
+
+
+def retrieval(torch, al, x, y, w):
+    """The host's refinement and score: procrustes of the synthesized rows
+    onto Y, then CSLS retrieval accuracy (the cosine kernel on a card)."""
+    synth = x @ w
+    return al.csls_retrieval_acc(synth @ al.procrustes(synth, y), y)
+
+
+def parties_path(torch, np, ck, al, dev, args, sizes):
+    """Phase 18: the two-party topology of ``examples/distributed_fkge_torch.py``
+    at full width, two ranks over ``gloo`` on ``dev`` (both on one card)."""
+    from repro_torch.core.distributed import run_parties
+    from repro_torch.core.parties import HOST_KEYS
+    from repro_torch.core.ppat import PPATConfig
+    from repro_torch.core.privacy import MomentsAccountant
+
+    n, rounds, kg_sizes, kge_steps = sizes
+    cfg = PPATConfig(steps=rounds)
+    t0 = time.perf_counter()
+    x, y, client, host, votes, local_ms = exchange_in_process(torch, np, dev, args.seed, cfg, n)
+    in_process_s = time.perf_counter() - t0
+    log(f"parties: backend {PARTY_BACKEND}, 2 ranks on {dev} (one card: the pipe stages through "
+        f"pinned host memory)")
+    (build_dir := REPO / "build").mkdir(exist_ok=True)
+    rdzv = build_dir / f"parties-rdzv-{time.time_ns()}"
+    t0 = time.perf_counter()
+    try:
+        ranks = run_parties(party_ranks, 2, args.seed, sizes, backend=PARTY_BACKEND,
+                            init_method=f"file://{rdzv}", device=dev if dev.type == "cpu" else None)
+    finally:
+        rdzv.unlink(missing_ok=True)
+    spawn_s = time.perf_counter() - t0
+    c, h = ranks[0]["exchange"], ranks[1]["exchange"]
+
+    # a. the exchange against the in-process handshake, bit for bit
+    check(np.array_equal(c["state"]["w"], client.w.cpu().numpy())
+          and np.array_equal(c["state"]["w_vel"], client.vel.cpu().numpy()),
+          "phase 18a: the client's W differs from the in-process handshake's")
+    for k in HOST_KEYS:
+        for leaf, v in host.params[k].items():
+            check(np.array_equal(h["state"][k][leaf], v.cpu().numpy()),
+                  f"phase 18a: the host's {k}.{leaf} differs from the in-process handshake's")
+    check(np.array_equal(h["n0"], np.stack([v[0] for v in votes]))
+          and np.array_equal(h["n1"], np.stack([v[1] for v in votes])),
+          "phase 18a: the per-round vote counts differ from the in-process handshake's")
+    acct = MomentsAccountant(cfg.lam, cfg.delta)
+    for n0, n1 in zip(h["n0"], h["n1"]):
+        acct.update(n0, n1)
+    eps = acct.epsilon()
+    check(eps == host.accountant.epsilon() and np.isfinite(eps) and eps > 0,
+          f"phase 18a: epsilon {eps} != the in-process {host.accountant.epsilon()}")
+    shape = f"float32[{cfg.batch}, {DIM}]"
+    for side in (c, h):
+        t = side["traffic"]
+        check(t["shapes"] == {shape: cfg.steps} and t["tensors"] == cfg.steps,
+              f"phase 18a: a party sent {t['shapes']}, not {cfg.steps} x {shape}")
+    pipe_bytes = (c["traffic"]["bytes"] + h["traffic"]["bytes"]) / cfg.steps
+    check(pipe_bytes == 2 * cfg.batch * DIM * 4, f"phase 18a: {pipe_bytes} bytes a round")
+    ck.reset_launches()
+    acc = retrieval(torch, al, x, y, torch.as_tensor(c["state"]["w"], device=dev))
+    launches = dict(ck.LAUNCHES)
+    acc_local = retrieval(torch, al, x, y, client.w)
+    check(acc == acc_local, f"phase 18a: CSLS retrieval {acc} != the in-process {acc_local}")
+    if dev.type == "cuda":
+        want = 2 * -(-n // RETRIEVAL_BLOCK)
+        check(launches["cosine_matrix"] == want,
+              f"phase 18a: the retrieval launched the cosine kernel {launches['cosine_matrix']} "
+              f"times, not {want}")
+    del x, y, client, host
+
+    # b. the sharded step: world 2 against world 1
+    b2, b1 = ranks[0]["sharded"], ranks[0]["sharded_world1"]
+    err = ranks[0]["sharded_err"]
+    check(err <= FED_TABLE_ATOL, f"phase 18b: world 2 differs from world 1 by {err} after "
+          f"{kge_steps} steps")
+    for name, res in (("rank 0", b2), ("rank 1", ranks[1]["sharded"]), ("world 1", b1)):
+        check(bool(np.isfinite(res["losses"]).all()), f"phase 18b: a loss of {name} is not finite")
+    check(b2["bytes"] == ranks[1]["sharded"]["bytes"], "phase 18b: the ranks moved different bytes")
+    med = statistics.median
+    out = {"launches": launches, "epsilon": eps, "acc": acc, "in_process_s": in_process_s,
+           "spawn_s": spawn_s,
+           "round_ms": {"in_process": med(local_ms), "client": med(c["round_ms"]),
+                        "host": med(h["round_ms"])},
+           "pipe_ms": med(c["pipe_ms"]), "pipe_bytes_per_round": pipe_bytes,
+           "pipe_tensors": c["traffic"]["tensors"] + h["traffic"]["tensors"],
+           "step_ms": {"world2": med(b2["ms"]), "world1": med(b1["ms"]),
+                       "world2_comm": med(b2["comm_ms"])},
+           "step_bytes": b2["bytes"] / kge_steps, "step_tensors": b2["tensors"] / kge_steps,
+           "shard_bytes": b2["shard_bytes"], "world1_bytes": b1["shard_bytes"],
+           "table_err": err, "loss": {"world2": float(b2["losses"][-1]),
+                                      "world1": float(b1["losses"][-1])}}
+    log(f"parties 18a: exchange at n={n} d={DIM}, {cfg.steps} rounds B={cfg.batch}: client W, "
+        f"host discriminators, every round's n0/n1 and epsilon {eps:.6f} bit-equal to the "
+        f"in-process handshake; the pipe carried {out['pipe_tensors']} tensors ({shape}), "
+        f"{pipe_bytes:.0f} B a round; median ms a round: in process "
+        f"{out['round_ms']['in_process']:.3f}, client {out['round_ms']['client']:.3f}, host "
+        f"{out['round_ms']['host']:.3f}, pipe (send to gradient back) {out['pipe_ms']:.3f}; "
+        f"CSLS retrieval after procrustes {acc:.6f} (= in process), cosine launches {launches}")
+    log(f"parties 18b: sharded TransE L1 E={kg_sizes[0]} R={kg_sizes[1]} d={DIM}, "
+        f"{kge_steps} steps of B={SHARDED['batch']}: world 2 within {err:.3g} of world 1 "
+        f"(atol {FED_TABLE_ATOL}); losses finite, last {out['loss']['world2']:.6f} (world 1 "
+        f"{out['loss']['world1']:.6f}); median ms a step: world 2 {out['step_ms']['world2']:.3f} "
+        f"({out['step_ms']['world2_comm']:.3f} of it in the group's calls), world 1 "
+        f"{out['step_ms']['world1']:.3f}; {out['step_bytes']:.0f} B and "
+        f"{out['step_tensors']:.0f} tensors a step per rank; a rank's shard "
+        f"{out['shard_bytes']} B (world 1: {out['world1_bytes']} B); spawn to results "
+        f"{spawn_s:.1f}s")
+    return out
+
+
 # ------------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3045,6 +3344,7 @@ def main(argv=None) -> int:
                             "reputation": storm["reputation_at_cut"]})
         engines_eleven_owners(torch, np, ops, sops, dev, args, "cpu", scale=0.002)
         engines_example(torch, np, dev, args, scale=4000)
+        parties_path(torch, np, ck, al, dev, args, (1_000, 20, (4_000, 50, 12_000), 30))
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -3144,17 +3444,27 @@ def main(argv=None) -> int:
     log(f"tick engines: phase 17 took {engines['phase_s']:.1f}s")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    two_parties = parties_path(torch, np, ck, al, dev, args,
+                               (ALIGNED, tp.PPATConfig().steps,
+                                (DBPEDIA["entities"], DBPEDIA["relations"], DBPEDIA["triples"]),
+                                SHARDED["steps"]))
+    two_parties["phase_s"] = time.perf_counter() - t0
+    log(f"parties: phase 18 took {two_parties['phase_s']:.1f}s")
+    torch.cuda.empty_cache()
+
     # each kernel's launches over the main paths that run it: serving (phase
     # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12),
     # the federation with its attached tier (phase 15), the storm (phase 16)
-    # and the tick engines at full width and over the eleven owners (phase
-    # 17, replays counted)
+    # the tick engines at full width and over the eleven owners (phase 17,
+    # replays counted) and the two parties' retrieval (phase 18)
     lm_launches = {**lm["qwen3-0.6b"]["launches"], **lm["mamba2-2.7b"]["launches"]}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
                 + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
                 + fed["launches"].get(name, 0) + storm["launches"].get(name, 0)
                 + engines["full_width"]["launches"].get(name, 0)
                 + engines["eleven_owners"]["launches"].get(name, 0)
+                + two_parties["launches"].get(name, 0)
                 for name in KERNELS}
     for name in ("flash_attention", "ssd_chunks"):
         check(launches[name] > 0, f"the LM serving path never launched {name}")
@@ -3174,7 +3484,7 @@ def main(argv=None) -> int:
     result = {"card": card, "build_s": build_s, "sass": sass, "check_max_abs_err": worst,
               "serve": res,
               "train": train, "handshake": hs, "lm": lm, "federation": fed, "storm": storm,
-              "tick_engines": engines,
+              "tick_engines": engines, "parties": two_parties,
               "timings": times,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

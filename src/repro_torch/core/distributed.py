@@ -10,9 +10,15 @@ of a group here runs on its own device, ``devices[k]``, and its outputs stay
 there. Nor are chunks padded with masked dummy entries: those cap the XLA
 compiles per chunk extent, and a captured CUDA graph has no extent.
 
-The two-party mesh of ``examples/distributed_fkge.py`` (``make_party_mesh``,
-``init_distributed_ppat``, ``ppat_exchange_step``, ``make_sharded_kge_step``)
-is not ported (``ROADMAP.md``).
+The two-party topology of ``examples/distributed_fkge.py`` lives in
+``core/parties.py`` and is re-exported here: ``make_party_group`` (one
+``torch.distributed`` process per party, rank 0 the client and rank 1 the
+host; the caller names the backend, and a party on a card under ``gloo``
+stages what it sends through pinned host memory), ``run_parties`` (spawned
+ranks), ``init_distributed_ppat``, ``ppat_exchange_step`` (its pipe carries
+only the round's two (B, d) tensors) and ``make_sharded_kge_step`` with
+``shard_params``/``gather_params``. ``examples/distributed_fkge_torch.py``
+runs them (``--device cpu`` on the CPU, no ``--device`` for the card).
 """
 from __future__ import annotations
 
@@ -20,6 +26,20 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.parties import (  # noqa: F401
+    PartyGroup,
+    distributed_ppat_state_from_numpy,
+    exchange_party,
+    gather_params,
+    init_distributed_ppat,
+    make_party_group,
+    make_sharded_kge_step,
+    ppat_exchange_step,
+    role_state,
+    run_parties,
+    shard_params,
+    sharded_party,
+)
 from repro_torch.kernels.dispatch import cuda_devices
 
 

@@ -155,19 +155,23 @@ EVENT_FIELDS = ("tick", "host", "client", "kind", "accepted", "fault", "attack",
 ENGINES = ("reference", "batched")
 
 
-def make_universes(seed=1, stats=STATS, aligns=ALIGNS):
-    """(JAX universe, port universe) from the same seed at scale 1/500."""
+def make_universes(seed=1, stats=STATS, aligns=ALIGNS, scale=1 / 500):
+    """(JAX universe, port universe) from the same seed, at scale 1/500 by
+    default; ``stats=None`` and ``aligns=None`` give the eleven KGs of
+    Tab. 2 and the alignments of Tab. 3."""
     from repro.kge.data import synthesize_universe as jax_universe
     from repro_torch.kge.data import synthesize_universe
 
-    return (jax_universe(seed=seed, scale=1 / 500, kg_stats=stats, alignments=aligns),
-            synthesize_universe(seed=seed, scale=1 / 500, kg_stats=stats, alignments=aligns))
+    return (jax_universe(seed=seed, scale=scale, kg_stats=stats, alignments=aligns),
+            synthesize_universe(seed=seed, scale=scale, kg_stats=stats, alignments=aligns))
 
 
-def _pair(universes, *, dim=16, steps=12, faults=None, engine="reference", **kw):
+def _pair(universes, *, dim=16, steps=12, faults=None, engine="reference", families=None,
+          **kw):
     """(JAX scheduler, port scheduler) on the same tables and draws: the JAX
     one with its serial engine, the port's with ``engine`` (its
     ``tick_impl``) from ``JaxSchedulerDraws``.
+    ``families`` maps owners to KGE families (TransE for all by default).
     ``faults`` is ``(FaultPlan kwargs, table {(tick, host): Fault kwargs})``
     and builds one injector for each; every other keyword (an adversary
     spec, the defenses, ...) goes to both."""
@@ -183,6 +187,8 @@ def _pair(universes, *, dim=16, steps=12, faults=None, engine="reference", **kw)
 
     jkgs, tkgs = universes
     kw = {"local_epochs": 2, "update_epochs": 1, "seed": 0, **kw}
+    if families is not None:
+        kw["families"] = families
     jcfg = JaxPPATConfig(steps=steps, seed=0)
     jkw, tkw = dict(kw), dict(kw)
     if faults is not None:

@@ -1268,3 +1268,78 @@ def test_lm_engine_on_the_card_equals_the_cpu(cuda_dev, arch):
         ref, logits = batch1_greedy(cpu, p, 12)
         assert_tokens_match(out["cpu"][rid], ref, logits, 1e-4)
         assert_tokens_match(out["card"][rid], ref, logits, 1e-4)
+
+
+@pytest.mark.cuda
+def test_party_exchange_on_the_card_equals_the_in_process_handshake(cuda_dev, tmp_path):
+    """Two ranks over gloo, both on the card (the pipe staged through pinned
+    host memory), against ``PPATClient`` and ``PPATHost.step`` in this
+    process on the card from the same draws: W, the discriminators, the
+    per-round vote counts and epsilon bit-equal; two (B, d) tensors a
+    round on the pipe."""
+    from repro_torch.core import parties
+    from repro_torch.core.pate import laplace_noise
+    from repro_torch.core.ppat import PPATClient, PPATConfig, PPATHost
+
+    cfg = PPATConfig(steps=16, seed=3)
+    n, d = 500, 100
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = (x @ np.linalg.qr(rng.standard_normal((d, d)))[0]).astype(np.float32)
+    init = parties.init_distributed_ppat(torch.Generator().manual_seed(11), d, cfg)
+    noise = laplace_noise(torch.Generator().manual_seed(12), (cfg.steps, 2, cfg.batch))
+    xi, yi = np.random.default_rng(cfg.seed + 29), np.random.default_rng(cfg.seed + 17)
+    xbs = np.stack([x[xi.integers(0, n, cfg.batch)] for _ in range(cfg.steps)])
+    ybs = np.stack([y[yi.integers(0, n, cfg.batch)] for _ in range(cfg.steps)])
+    client, host = parties.run_parties(parties.exchange_party, 2, cfg, init, xbs, ybs, noise,
+                                       backend="gloo", init_method=f"file://{tmp_path}/rdzv")
+
+    ppat_client = PPATClient(d, torch.from_numpy(x).to(cuda_dev), cfg)
+    ppat_host = PPATHost(None, d, torch.from_numpy(y).to(cuda_dev), cfg,
+                         params={k: {n_: v.to(cuda_dev) for n_, v in init[k].items()}
+                                 for k in parties.HOST_KEYS})
+    votes = []
+    update = ppat_host.accountant.update
+    ppat_host.accountant.update = lambda n0, n1: (votes.append((n0, n1)), update(n0, n1))
+    for s in range(cfg.steps):
+        xb, adv = ppat_client.sample_batch()
+        grad, _ = ppat_host.step(adv, noise[s])
+        ppat_client.apply_grad(xb, grad)
+    assert np.array_equal(client["state"]["w"], ppat_client.w.cpu().numpy())
+    assert np.array_equal(client["state"]["w_vel"], ppat_client.vel.cpu().numpy())
+    for k in parties.HOST_KEYS:
+        for leaf, v in ppat_host.params[k].items():
+            assert np.array_equal(host["state"][k][leaf], v.cpu().numpy()), (k, leaf)
+    assert np.array_equal(host["history"]["n0"], np.stack([v[0] for v in votes]))
+    assert np.array_equal(host["history"]["n1"], np.stack([v[1] for v in votes]))
+    for side in (client, host):
+        assert side["traffic"]["shapes"] == {f"float32[{cfg.batch}, {d}]": cfg.steps}
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_the_card_world2_equals_world1(cuda_dev, tmp_path):
+    """The row-sharded step at world 2 (two ranks sharing the card over
+    gloo) against world 1 in this process, from the same tables and
+    batches: tables within 1e-5 after 50 steps, losses within 1e-6."""
+    from repro_torch.core import parties
+
+    e, r, d, b, steps = 10_000, 50, 100, 128, 50
+    rng = np.random.default_rng(0)
+    params = {"ent": rng.uniform(-0.6, 0.6, (e, d)).astype(np.float32),
+              "rel": rng.uniform(-0.6, 0.6, (r, d)).astype(np.float32)}
+    pos = np.stack([rng.integers(0, [e, r, e], (b, 3)) for _ in range(steps)])
+    neg = pos.copy()
+    neg[:, :, 2] = rng.integers(0, e, (steps, b))
+    for family in ("transe", "distmult"):
+        model = KGEModel(family, e, r, d, margin=2.0)
+        two = parties.run_parties(parties.sharded_party, 2, model, 0.3, params, pos, neg,
+                                  backend="gloo", init_method=f"file://{tmp_path}/{family}")
+        one = parties.sharded_party(parties.make_party_group(0, 1, backend="gloo",
+                                                             device=cuda_dev),
+                                    model, 0.3, params, pos, neg)
+        for k in ("ent", "rel"):
+            np.testing.assert_allclose(two[0]["params"][k], one["params"][k].cpu().numpy(),
+                                       rtol=0, atol=1e-5, err_msg=f"{family}.{k}")
+        np.testing.assert_allclose(two[0]["losses"], one["losses"].cpu().numpy(),
+                                   rtol=0, atol=1e-6)
+        assert np.isfinite(two[0]["losses"]).all()

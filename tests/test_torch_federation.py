@@ -77,6 +77,26 @@ def test_run_matches_the_serial_reference(universes, metric, engine):
     assert t.sim_makespan() == max(t.sim_times().values()) > 0
 
 
+def test_eleven_kgs_of_mixed_families_match_the_serial_reference():
+    """The 11-KG example's universe (Tab. 2 and 3 at scale 1/4000, TransE,
+    TransH, TransR and TransD in turn) for one tick against the JAX serial
+    scheduler. At d = 2 every alignment has at least d rows, so each
+    procrustes input has full rank and its polar factor is unique."""
+    jkgs, tkgs = make_universes(seed=0, stats=None, aligns=None, scale=1 / 4000)
+    fams = ("transe", "transh", "transr", "transd")
+    families = {n: fams[i % len(fams)] for i, n in enumerate(tkgs)}
+    j, t = _pair((jkgs, tkgs), dim=2, steps=3, families=families, local_epochs=1)
+    assert {tr.model.family for tr in t.trainers.values()} == set(fams)
+    assert len(t.trainers) == 11
+    j.initial_training()
+    t.initial_training()
+    assert_same(j, t)
+    j.run(max_ticks=1)
+    t.run(max_ticks=1)
+    assert_same(j, t)
+    assert sum(e.kind == "ppat" for e in t.events) > 0
+
+
 @pytest.mark.parametrize("engine", ENGINES)
 def test_rejected_backtrack_restores_bit_for_bit(universes, engine):
     j, t = _pair(universes, steps=3, engine=engine)

@@ -15,7 +15,8 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
-    REPO / "examples" / "federated_11kg_torch.py"]
+    REPO / "examples" / "federated_11kg_torch.py",
+    REPO / "examples" / "distributed_fkge_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -58,7 +59,9 @@ def test_port_files_exist():
                  "src/repro_torch/checkpoint/__init__.py",
                  "src/repro_torch/checkpoint/checkpointer.py",
                  "src/repro_torch/core/tick_engine.py", "src/repro_torch/core/distributed.py",
-                 "examples/quickstart_torch.py", "examples/federated_11kg_torch.py"):
+                 "src/repro_torch/core/parties.py",
+                 "examples/quickstart_torch.py", "examples/federated_11kg_torch.py",
+                 "examples/distributed_fkge_torch.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
     assert (REPO / "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu").is_file()
@@ -145,6 +148,17 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         attacks.auc(np.ones(3), np.zeros(2))
     assert attacks.auc(np.ones(3), np.zeros(2), device="cpu") == 1.0
     assert attacks.auc(torch.ones(3), np.zeros(2)) == 1.0  # a tensor keeps its device
+    from repro_torch.core import distributed
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.make_party_group(0, 1, backend="gloo")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.run_parties(distributed.exchange_party, 2, backend="gloo",
+                                init_method="file:///nonexistent")
+    with pytest.raises(RuntimeError, match="nccl needs one card per rank"):
+        distributed.make_party_group(0, 1, backend="nccl", device="cpu")
+    assert distributed.make_party_group(0, 1, backend="gloo", device="cpu").device == \
+        torch.device("cpu")
 
 
 def test_kernel_build_is_lazy():
