@@ -11,11 +11,12 @@ and Dbpedia with a serving tier attached, drives a poisoning storm
 against the Byzantine defenses over the same owners, cut by a checkpoint
 and resumed, and holds the batched tick engine (captured CUDA graphs)
 against the serial one at that width, over the paper's eleven owners and
-on the 11-KG example's universe, then runs the paper's two-party topology
+on the 11-KG example's universe, runs the paper's two-party topology
 (the PPAT exchange between two processes, the row-sharded KGE step) at
-full width.
+full width, and serves the MoE, encoder-decoder and VLM cards (mixtral-8x22b,
+whisper-medium, internvl2-26b at full width; jamba and kimi reduced).
 
-    python3 chip_smoke.py            # one CUDA card; about five minutes on an H100
+    python3 chip_smoke.py            # one CUDA card; about eight minutes on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
@@ -110,7 +111,11 @@ Phases (every failed check ends the run with a non-zero exit):
 11. flash attention against its plain version (dense masked softmax) at
    qwen3-0.6b's prefill (B = 1, S = 2,048, H = 16, KV = 8, Dh = 128,
    causal), at ragged S = 333, a window of 64, non-causal, GQA 4:1, Dh 64 and
-   32, and bf16 (atol = rtol = 1e-5 at fp32; at bf16, where both round the
+   32, kimi-k2-1t's heads (H = 64, KV = 8, Dh 112, S = 1,024), bf16, and
+   at the shapes phase 19 adds: whisper-medium's cross-attention (S = 2,048
+   queries over T = 1,500 frames, non-causal), mixtral-8x22b past its
+   4,096-token window at S = 6,144, internvl2-26b's 256 + 2,048 rows
+   (atol = rtol = 1e-5 at fp32; at bf16, where both round the
    same fp32 result, one bf16 ulp: rtol = 2**-7, atol = 1e-5); the SSD chunk
    kernel against its plain version at mamba2-2.7b's prefill (S = 2,048,
    H = 80, P = 64, N = 128, Q = 256) with ``Mamba2Mixer``'s A and dt laws
@@ -222,6 +227,30 @@ Phases (every failed check ends the run with a non-zero exit):
    128), 300 steps at world 2, then at world 1 from the same draws: the
    gathered tables within 1e-5, every loss finite; median ms a step,
    bytes a step and a rank's shard bytes.
+19. the remaining LM cards, fp32, random weights from ``--seed``, each
+   freed before the next with its peak device memory printed. The only cut
+   is depth: mixtral-8x22b and internvl2-26b at their published widths with
+   ``LM_CARD_LAYERS`` = 2 layers; whisper-medium whole (24 + 24 layers).
+   a. mixtral: ``ServingEngine(max_batch=4, max_len=8192)``, 8 requests of
+   512-6,144 tokens (one past the 4,096 window, the first no multiple of
+   64), 16 new tokens, checked as in phase 12 with the flash counter at
+   requests x 2; the dropped assignments of the longest prefill per layer;
+   a ``launch/serve.py``-style batch 4 x 2,048 with 32 new tokens (prefill
+   tokens/s, decode ms per token, first tokens against the plain-kernel
+   prefill); a ``torch.profiler`` window over one such prefill (idle share,
+   device time by kernel) and the MoE's sections (routing, dispatch, expert
+   GEMMs, combine) between CUDA events over another. b. whisper:
+   ``ServingEngine`` refuses it; the serve-style batch 4 x 2,048 over seeded
+   N(0, 1) frames (4, 1,500, 1,024): flash launched 72 times in the prefill
+   (24 encoder, 24 self-attention, 24 cross-attention layers), sequences 0
+   and 3 against their batch-1 runs, first tokens against the plain-kernel
+   prefill, a device-only profile of a serve run. c. internvl: the engine
+   as in a (8 requests of 128-2,048 tokens, ``max_len`` 4,096, the
+   reference's patch-less prefill; a slot per request, since a recycled
+   VLM slot attends its previous request's rows), and the serve-style run
+   behind seeded patches (4, 256, 6,144), flash twice per prefill. d.
+   reduced jamba (Mamba2 + attention + MoE) and kimi (a shared expert)
+   through the engine, the flash and SSD counters at what the layers imply.
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -233,7 +262,7 @@ launch lasts tens of ms, and its ``ms`` is the device time of one (as
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15-18 at a tiny size (the
+``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15-19 at a tiny size (the
 LM cards reduced) on the CPU with the plain versions (no kernels, no
 timings) and also exits non-zero.
 """
@@ -296,11 +325,20 @@ RETRIEVAL_BLOCK = 4096   # ``core/alignment.py``'s rows per cosine launch
 CHECK_RETRIEVAL = 8192   # n = m of the blockwise-vs-full retrieval check
 PPAT_CHECK_ROUNDS = 16   # PPAT rounds held card vs CPU
 #: flash-attention checks (B, H, KV, S, Dh, causal, window, dtype): qwen3-0.6b's
-#: prefill at 2,048 tokens, then ragged S, a window, non-causal, GQA 4:1, bf16
+#: prefill at 2,048 tokens, then ragged S, a window, non-causal, GQA 4:1, bf16,
+#: kimi-k2-1t's heads (Dh 112)
 FLASH_CHECKS = [(1, 16, 8, 2048, 128, True, 0, "fp32"), (2, 16, 8, 333, 128, True, 0, "fp32"),
                 (1, 4, 4, 333, 64, False, 64, "fp32"), (1, 16, 4, 1000, 64, True, 0, "fp32"),
                 (1, 8, 2, 500, 32, True, 64, "fp32"), (1, 16, 8, 2048, 128, True, 0, "bf16"),
-                (2, 16, 4, 333, 64, True, 64, "bf16")]
+                (2, 16, 4, 333, 64, True, 64, "bf16"),
+                (1, 64, 8, 1024, 112, True, 0, "fp32"), (1, 64, 8, 1024, 112, True, 0, "bf16")]
+#: checks with T != S or past a window (B, H, KV, S, T, Dh, causal, window, dtype):
+#: whisper-medium's cross-attention over 1,500 frames, mixtral-8x22b past its
+#: 4,096-token window, internvl2-26b's patch-shifted length (256 + 2,048)
+FLASH_LONG_CHECKS = [(1, 16, 16, 2048, 1500, 64, False, 0, "fp32"),
+                     (1, 16, 16, 2048, 1500, 64, False, 0, "bf16"),
+                     (1, 48, 8, 6144, 6144, 128, True, 4096, "fp32"),
+                     (1, 48, 8, 2304, 2304, 128, True, 0, "fp32")]
 #: one bf16 ulp relative to the value (2**-8 to 2**-7 of it): kernel and plain
 #: version round the same fp32 result to bf16, so they differ by at most this
 BF16_ULP = 2.0 ** -7
@@ -310,6 +348,13 @@ SSD_SHAPE = (1, 2048, 80, 64, 128, 256)    # B, S, H, P, N, Q: mamba2-2.7b's pre
 LM_PLANS = {"qwen3-0.6b": (8, 16, 128, 2048, 4096, 32),
             "mamba2-2.7b": (4, 8, 256, 2048, 4096, 32)}
 LM_REHEARSE_PLAN = (2, 4, 8, 90, 256, 6)
+#: phase 19: mixtral-8x22b and internvl2-26b at their published widths, cut
+#: to this many layers (whisper-medium runs whole), and their engine plans
+LM_CARD_LAYERS = 2
+MIXTRAL_PLAN = (4, 8, 512, 6144, 8192, 16)
+INTERNVL_PLAN = (8, 8, 128, 2048, 4096, 16)   # a fresh slot per request
+LM_CARD_REHEARSE_PLAN = (2, 4, 8, 90, 256, 6)   # 19d (reduced jamba, kimi) and rehearsals
+WHISPER_PROMPT = 2048    # tokens per sequence of whisper's batch-4 serve run
 SERVE_GEN = 32           # tokens per sequence of the ``launch/serve.py`` run
 SERVE_BATCH_LM = 4       # sequences per ``launch/serve.py`` batch
 LM_TIE_TOL = 1e-3        # near-tie rule for greedy tokens: logits within this
@@ -1597,11 +1642,12 @@ def lm_kernels_vs_plain(torch, fa, ks, dev, seed):
     versions on the card at the main path's shapes and at ragged ones."""
     worst = {"flash_attention": 0.0, "ssd_chunks": 0.0}
     g = torch.Generator(device=dev).manual_seed(seed + 51)
-    for b, h, kv, s, dh, causal, window, dname in FLASH_CHECKS:
+    cases = [c[:4] + (c[3],) + c[4:] for c in FLASH_CHECKS] + FLASH_LONG_CHECKS
+    for b, h, kv, s, t, dh, causal, window, dname in cases:
         dtype = torch.float32 if dname == "fp32" else torch.bfloat16
         q = torch.randn(b, s, h, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
-        k = torch.randn(b, s, kv, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
-        v = torch.randn(b, s, kv, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
+        k = torch.randn(b, t, kv, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
+        v = torch.randn(b, t, kv, dh, device=dev, generator=g).to(dtype).transpose(1, 2)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -1610,7 +1656,8 @@ def lm_kernels_vs_plain(torch, fa, ks, dev, seed):
         torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
         if dtype == torch.float32:
             worst["flash_attention"] = max(worst["flash_attention"], err)
-        log(f"check flash_attention B={b} H={h} KV={kv} S={s} Dh={dh} causal={causal} "
+        del q, k, v, got, want
+        log(f"check flash_attention B={b} H={h} KV={kv} S={s} T={t} Dh={dh} causal={causal} "
             f"window={window} {dname}: max|err|={err:.3g} (atol {atol}, rtol {rtol:.3g}) ok")
     b, s, h, p, n, q = SSD_SHAPE
     x, dt, a, bm, cm, s0 = ssd_inputs(torch, g, dev, b, s, h, p, n)
@@ -1649,12 +1696,13 @@ def lm_prompts(np, ds, rng, n, lo, hi, multiple):
     return [ds.tokens(int(m), seed=1000 + i) for i, m in enumerate(lens)]
 
 
-def batch1_greedy(torch, model, prompt, n):
-    """Greedy tokens of one prompt alone through ``prefill`` +
-    ``decode_step``, with the logits each was picked from (on the host)."""
+def batch1_greedy(torch, model, prompt, n, offset=0, **inputs):
+    """Greedy tokens of one prompt alone through ``prefill`` (``inputs``:
+    its frames or patches) + ``decode_step`` (positions ``offset`` past the
+    prompt), with the logits each was picked from (on the host)."""
     dev = model.device
-    cache = model.init_cache(1, len(prompt) + n)
-    logits = model.prefill(torch.as_tensor(prompt[None], device=dev).long(), cache)
+    cache = model.init_cache(1, offset + len(prompt) + n)
+    logits = model.prefill(torch.as_tensor(prompt[None], device=dev).long(), cache, **inputs)
     toks, rows = [], []
     for i in range(n):
         row = logits[0, -1]
@@ -1662,7 +1710,7 @@ def batch1_greedy(torch, model, prompt, n):
         rows.append(row)
         if i + 1 < n:
             logits = model.decode_step(torch.tensor([[toks[-1]]], device=dev), cache,
-                                       len(prompt) + i)
+                                       offset + len(prompt) + i)
     return toks, torch.stack(rows).cpu()
 
 
@@ -1906,6 +1954,357 @@ def lm_timings(torch, fa, ks, dev, card):
             f"{100 * x_['bound_ms'] / x_['ms']:.1f}% of bound{fp32}"
             + (f"; this design {x_['design_flops']:.3g} FLOP with {x_['heads_per_block']} "
                f"heads a block" if "design_flops" in x_ else "") + f"; {card}")
+    return out
+
+
+# ------------------------------------------------------------ phase 19
+def lm_card(torch, arch, dev, args, layers=None):
+    """(cfg, model, parameters) of ``arch`` at fp32 with random weights from
+    ``--seed``: the published widths, cut to ``layers`` layers if given
+    (reduced on a rehearsal)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params
+
+    cfg = get_config(arch)
+    if args.rehearse:
+        cfg = reduced(cfg)
+    elif layers:
+        cfg = cfg.replace(num_layers=layers)
+    cfg = cfg.replace(dtype="float32")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    sync(torch, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm {arch}: {cfg.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
+        + f", d={cfg.d_model}, {n_params / 1e9:.3f} B parameters at fp32 on {dev} (drawn in "
+        f"{time.perf_counter() - t0:.2f}s)")
+    return cfg, model, n_params
+
+
+def layer_counts(cfg):
+    """(attention layers, SSM layers) of a card's decoder."""
+    from repro_torch.models.blocks import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    return sum(k.mixer == "attn" for k in kinds), sum(k.mixer == "ssm" for k in kinds)
+
+
+def moe_drops(torch, model, tokens):
+    """Dropped assignments of each MoE layer in one prefill of ``tokens``:
+    [(dropped, assignments, capacity)], read through ``details=True``."""
+    drops, wrapped = [], []
+    for layer in model.layers:
+        if layer.moe is None:
+            continue
+        orig = layer.moe.forward
+
+        def forward(x, *, groups="joint", details=False, orig=orig):
+            y, aux, info = orig(x, groups=groups, details=True)
+            drops.append((int((~info["keep"]).sum()), info["keep"].numel(), info["capacity"]))
+            return (y, aux, info) if details else (y, aux)
+
+        layer.moe.forward = forward
+        wrapped.append(layer.moe)
+    try:
+        model.prefill(tokens, model.init_cache(tokens.shape[0], tokens.shape[1]))
+    finally:
+        for moe in wrapped:
+            del moe.forward
+    return drops
+
+
+MOE_SECTIONS = ("_route", "_dispatch", "_experts", "_combine", "_shared")
+
+
+def moe_section_ms(torch, model, fn):
+    """Device ms of each MoE section (routing, dispatch, expert GEMMs,
+    combine, shared experts) over all MoE layers in one call of ``fn``,
+    between CUDA events around each section's call (no synchronisation
+    inside the run), and the whole call's ms between events."""
+    events, wrapped = {name: [] for name in MOE_SECTIONS}, []
+    for layer in model.layers:
+        if layer.moe is None:
+            continue
+        for name in MOE_SECTIONS:
+            orig = getattr(layer.moe, name)
+
+            def section(*a, orig=orig, name=name):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = orig(*a)
+                e1.record()
+                events[name].append((e0, e1))
+                return out
+
+            setattr(layer.moe, name, section)
+        wrapped.append(layer.moe)
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        for moe in wrapped:
+            for name in MOE_SECTIONS:
+                delattr(moe, name)
+    out = {name.strip("_"): sum(a.elapsed_time(b) for a, b in evs)
+           for name, evs in events.items()}
+    out["call"] = t0.elapsed_time(t1)
+    return out
+
+
+def card_engine(torch, np, fa, ks, cfg, model, dev, args, card, plan, name):
+    """``ServingEngine`` over ragged prompts: every request answered, its
+    tokens a batch-1 ``prefill`` + ``decode_step`` run's (a VLM's offset by
+    its patches, as the engine decodes it) and its first token the
+    plain-kernel prefill's, up to near-ties; the flash and SSD counters,
+    zeroed just before, at one launch per request and attention (SSM)
+    layer."""
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.serving import ServingEngine
+
+    slots, n_req, lo, hi, max_len, new = plan
+    ds = SyntheticTextDataset(vocab_size=cfg.vocab_size, seed=args.seed)
+    rng = np.random.default_rng(args.seed + 67)
+    prompts = lm_prompts(np, ds, rng, n_req, lo, hi,
+                         cfg.ssm.chunk_size if cfg.ssm.enabled else 64)
+    if cfg.sliding_window and max(len(p) for p in prompts) <= cfg.sliding_window:
+        prompts[-1] = ds.tokens(hi, seed=1000 + n_req - 1)   # one past the window
+    n_attn, n_ssm = layer_counts(cfg)
+    log(f"lm {name} engine: {n_req} requests, prompts {sorted(len(p) for p in prompts)}, "
+        f"{new} new tokens each, {slots} slots, max_len {max_len}")
+    eng = ServingEngine(model, cfg, max_batch=slots, max_len=max_len, device=dev)
+    fa.reset_launches()
+    ks.reset_launches()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=new)
+    done = eng.run_until_drained()
+    sync(torch, dev)
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "ssd_chunks": ks.LAUNCHES["ssd_chunks"]}
+    check(len(done) == n_req and all(r.done and len(r.generated) == new for r in done),
+          f"lm {name}: served {len(done)} of {n_req} submitted")
+    if dev.type == "cuda":
+        want = {"flash_attention": n_req * n_attn, "ssd_chunks": n_req * n_ssm}
+        check(launches == want, f"lm {name}: launches {launches}, planned {want}")
+    diverged, first_err = 0, 0.0
+    for r in sorted(done, key=lambda r: r.rid):
+        prompt = prompts[r.rid]
+        toks, logits = batch1_greedy(torch, model, prompt, new, offset=cfg.num_patches)
+        diverged += near_tie_match(r.generated, toks, logits, LM_TIE_TOL)
+        with plain_kernels():
+            plain = model.prefill(torch.as_tensor(prompt[None], device=dev).long(),
+                                  model.init_cache(1, len(prompt)))[0, -1].cpu()
+        first_err = max(first_err, float((plain - logits[0]).abs().max()))
+        near_tie_match([toks[0]], [int(torch.argmax(plain))], plain[None], LM_TIE_TOL)
+    check(first_err <= LM_TIE_TOL, f"lm {name}: kernel prefill logits differ from the plain "
+          f"prefill's by {first_err:.3g} > {LM_TIE_TOL}")
+    lat = sorted(r.finished_at - r.submitted_at for r in done)
+    res = {"requests": n_req, "served": len(done), "slots": slots, "new_tokens": new,
+           "prompt_lens": [len(p) for p in prompts], "wall_s": wall_s, "launches": launches,
+           "generated_tokens_per_s": n_req * new / wall_s, "p50_ms": 1e3 * lat[len(lat) // 2],
+           "batch1_diverged_at_near_tie": diverged, "first_token_max_dlogit": first_err}
+    log(f"check lm {name} engine: {len(done)}/{n_req} served in {wall_s:.3f}s host clock "
+        f"({res['generated_tokens_per_s']:.1f} generated tokens/s, p50 {res['p50_ms']:.1f} ms); "
+        f"launches {launches}; every request's tokens equal its batch-1 run ({diverged} differ "
+        f"only after a near-tie, tol {LM_TIE_TOL}), first tokens the plain-kernel prefill's, "
+        f"max|dlogit| {first_err:.3g}; {card}")
+    del eng
+    return res, prompts
+
+
+def card_serve(torch, np, fa, cfg, model, dev, args, card, name, plen, inputs):
+    """A ``launch/serve.py``-style batched run (batch 4, ``SERVE_GEN`` new
+    tokens, ``inputs``: seeded frames or patches): prefill tokens/s, decode
+    ms per token, the flash launches of the run (all in its prefill); its
+    first tokens held against the plain-kernel prefill, up to near-ties."""
+    from repro_torch.data import SyntheticTextDataset
+    from repro_torch.launch import serve as lserve
+
+    ds = SyntheticTextDataset(vocab_size=cfg.vocab_size, seed=args.seed)
+    batch = np.stack([ds.tokens(plen, seed=s) for s in range(SERVE_BATCH_LM)])
+    lserve.generate(model, batch[:, :16], 2, **inputs)   # warm-up: cuBLAS handles, allocator
+    fa.reset_launches()
+    gen_tokens, t = lserve.generate(model, batch, SERVE_GEN, **inputs)
+    launches = fa.LAUNCHES["flash_attention"]
+    check(gen_tokens.shape == (SERVE_BATCH_LM, SERVE_GEN)
+          and bool((gen_tokens >= 0).all() and (gen_tokens < cfg.padded_vocab).all()),
+          f"lm {name}: launch.serve gave tokens of shape {gen_tokens.shape}")
+    tokens = torch.as_tensor(batch, device=dev).long()
+    rows = plen + (inputs["patches"].shape[1] if "patches" in inputs else 0)
+    kernel = model.prefill(tokens, model.init_cache(SERVE_BATCH_LM, rows), **inputs)[:, -1].cpu()
+    with plain_kernels():
+        plain = model.prefill(tokens, model.init_cache(SERVE_BATCH_LM, rows), **inputs)[:, -1]
+    plain = plain.cpu()
+    err = float((kernel - plain).abs().max())
+    check(err <= LM_TIE_TOL, f"lm {name}: batched kernel prefill logits differ from the plain "
+          f"prefill's by {err:.3g} > {LM_TIE_TOL}")
+    for b in range(SERVE_BATCH_LM):
+        near_tie_match([int(gen_tokens[b, 0])], [int(torch.argmax(plain[b]))], plain[b][None],
+                       LM_TIE_TOL)
+    res = {"batch": SERVE_BATCH_LM, "prompt": plen, "gen": SERVE_GEN,
+           "prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+           "prefill_tokens_per_s": SERVE_BATCH_LM * plen / t["prefill_s"],
+           "decode_ms_per_token": 1e3 * t["decode_s"] / (SERVE_GEN - 1),
+           "launches": {"flash_attention": launches}, "first_token_max_dlogit": err}
+    log(f"lm {name} launch.serve: batch {SERVE_BATCH_LM} x prompt {plen}: prefill "
+        f"{1e3 * t['prefill_s']:.1f} ms ({res['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{res['decode_ms_per_token']:.2f} ms per token ({SERVE_GEN} tokens); flash launches "
+        f"{launches}; first tokens the plain-kernel prefill's, max|dlogit| {err:.3g}; {card}")
+    return res, tokens, gen_tokens
+
+
+def check_flash(dev, serve_res, want, name):
+    """On the card: the batched serve run's prefill launched flash ``want``
+    times (its decode steps launch none)."""
+    got = serve_res["launches"]["flash_attention"]
+    if dev.type == "cuda":
+        check(got == want, f"lm {name}: batched prefill launched flash {got} times, not {want}")
+
+
+def log_profile(name, prof, card):
+    if prof["idle_share"] is None:
+        log(f"profile lm {name}: the profiler saw no device activity; idle share not measured")
+        return
+    log(f"profile lm {name}: {prof['wall_ms']:.1f} ms, device busy "
+        f"{prof['device_busy_ms']:.1f} ms, idle share {prof['idle_share']:.3f}; {card}")
+    for kname, ms in prof["top"]:
+        log(f"profile lm {name}:   {ms:9.3f} ms  {100 * ms / prof['device_busy_ms']:5.1f}%  "
+            f"{kname}")
+
+
+def peak_gb(torch, dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+
+
+def lm_cards(torch, np, fa, ks, dev, args, card):
+    """Phase 19: the LM cards of the MoE, encoder-decoder and patch-prefix
+    slice. mixtral-8x22b and internvl2-26b at their published widths cut to
+    ``LM_CARD_LAYERS`` layers, whisper-medium whole, jamba and kimi reduced;
+    each model freed before the next."""
+    from repro_torch.launch import serve as lserve
+    from repro_torch.serving import ServingEngine
+
+    out, launches = {}, {"flash_attention": 0, "ssd_chunks": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 19a. mixtral-8x22b: the engine, drops of the longest prefill, the serve
+    # script, a profiled prefill with the MoE's sections
+    cfg, model, n_params = lm_card(torch, "mixtral-8x22b", dev, args, LM_CARD_LAYERS)
+    plan = LM_CARD_REHEARSE_PLAN if args.rehearse else MIXTRAL_PLAN
+    res, prompts = card_engine(torch, np, fa, ks, cfg, model, dev, args, card, plan, "mixtral")
+    add(res["launches"])
+    longest = max(prompts, key=len)
+    drops = moe_drops(torch, model, torch.as_tensor(longest[None], device=dev).long())
+    res["longest_prefill_drops"] = drops
+    log(f"lm mixtral: prefill of the longest prompt ({len(longest)} tokens): dropped "
+        "assignments per MoE layer " + ", ".join(f"{d} of {n} (capacity {c})"
+                                                 for d, n, c in drops))
+    res["serve_batch"], tokens, _ = card_serve(torch, np, fa, cfg, model, dev, args, card,
+                                               "mixtral", 64 if args.rehearse else 2048, {})
+    check_flash(dev, res["serve_batch"], cfg.num_layers, "mixtral")
+    add(res["serve_batch"]["launches"])
+    if dev.type == "cuda":
+        cache = model.init_cache(tokens.shape[0], tokens.shape[1])
+        prof = profile_window(torch, lambda: model.prefill(tokens, cache))
+        sections = moe_section_ms(
+            torch, model, lambda: model.prefill(tokens, model.init_cache(*tokens.shape)))
+        moe_ms = sum(v for k, v in sections.items() if k != "call")
+        res.update(profile_prefill=prof, moe_sections_ms=sections,
+                   moe_share=moe_ms / sections["call"],
+                   moe_gemm_share=sections["experts"] / max(moe_ms, 1e-9))
+        log_profile("mixtral prefill (batch 4 x 2048)", prof, card)
+        log(f"lm mixtral prefill MoE sections (CUDA events, ms over {cfg.num_layers} layers): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sections.items())
+            + f"; the MoE {100 * res['moe_share']:.1f}% of the prefill, of it expert GEMMs "
+            f"{100 * res['moe_gemm_share']:.1f}%, routing + dispatch + combine "
+            f"{100 * (sections['route'] + sections['dispatch'] + sections['combine']) / moe_ms:.1f}%"
+            f"; {card}")
+    res.update(params=n_params, layers=cfg.num_layers, peak_gb=peak_gb(torch, dev))
+    log(f"lm mixtral: peak device memory {res['peak_gb']} GB")
+    out["mixtral-8x22b"] = res
+    del model, tokens
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 19b. whisper-medium whole: the serve script over seeded frames
+    cfg, model, n_params = lm_card(torch, "whisper-medium", dev, args)
+    try:
+        ServingEngine(model, cfg, max_batch=1, max_len=16, device=dev)
+        raise SmokeFailure("lm whisper: ServingEngine took the encoder-decoder card")
+    except NotImplementedError:
+        log("check lm whisper: ServingEngine refuses the encoder-decoder card, as the "
+            "reference's does")
+    g = torch.Generator(device=dev).manual_seed(args.seed + 73)
+    frames = torch.randn(SERVE_BATCH_LM, cfg.encoder_seq, cfg.d_model, device=dev, generator=g)
+    plen = 64 if args.rehearse else WHISPER_PROMPT
+    res = {}
+    res["serve_batch"], tokens, gen_tokens = card_serve(torch, np, fa, cfg, model, dev, args,
+                                                        card, "whisper", plen, {"frames": frames})
+    # one launch per encoder layer, per self-attention and per cross-attention
+    check_flash(dev, res["serve_batch"], cfg.encoder_layers + 2 * cfg.num_layers, "whisper")
+    add(res["serve_batch"]["launches"])
+    diverged = 0
+    for b in (0, SERVE_BATCH_LM - 1):
+        toks, logits = batch1_greedy(torch, model, tokens[b].cpu().numpy(), SERVE_GEN,
+                                     frames=frames[b:b + 1])
+        diverged += near_tie_match(list(gen_tokens[b]), toks, logits, LM_TIE_TOL)
+    res["batch1_diverged_at_near_tie"] = diverged
+    log(f"check lm whisper: sequences 0 and {SERVE_BATCH_LM - 1} of the batched run equal their "
+        f"batch-1 runs over their own frames ({diverged} differ only after a near-tie)")
+    if dev.type == "cuda":
+        res["profile_serve"] = profile_window(
+            torch, lambda: lserve.generate(model, tokens.cpu().numpy(), 8, frames=frames),
+            cpu=False)
+        log_profile("whisper serve (batch 4, 8 tokens)", res["profile_serve"], card)
+    res.update(params=n_params, peak_gb=peak_gb(torch, dev))
+    log(f"lm whisper: peak device memory {res['peak_gb']} GB")
+    out["whisper-medium"] = res
+    del model, frames, tokens
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 19c. internvl2-26b: the engine (the reference's patch-less prefill), the
+    # serve script over seeded patches
+    cfg, model, n_params = lm_card(torch, "internvl2-26b", dev, args, LM_CARD_LAYERS)
+    plan = LM_CARD_REHEARSE_PLAN if args.rehearse else INTERNVL_PLAN
+    plan = (plan[1],) + plan[1:]   # a fresh slot per request (ROADMAP, reference caveats)
+    res, _ = card_engine(torch, np, fa, ks, cfg, model, dev, args, card, plan, "internvl")
+    add(res["launches"])
+    patches = torch.randn(SERVE_BATCH_LM, cfg.num_patches, cfg.d_model, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(args.seed + 79))
+    res["serve_batch"], _, _ = card_serve(torch, np, fa, cfg, model, dev, args, card,
+                                          "internvl", 64 if args.rehearse else 2048,
+                                          {"patches": patches})
+    check_flash(dev, res["serve_batch"], cfg.num_layers, "internvl")
+    add(res["serve_batch"]["launches"])
+    res.update(params=n_params, layers=cfg.num_layers, peak_gb=peak_gb(torch, dev))
+    log(f"lm internvl: peak device memory {res['peak_gb']} GB")
+    out["internvl2-26b"] = res
+    del model, patches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # 19d. jamba (Mamba2 + attention + MoE) and kimi (shared expert), reduced
+    for arch in ("jamba-1.5-large-398b", "kimi-k2-1t-a32b"):
+        args_r = argparse.Namespace(**{**vars(args), "rehearse": True})
+        cfg, model, _ = lm_card(torch, arch, dev, args_r)
+        res, _ = card_engine(torch, np, fa, ks, cfg, model, dev, args, card,
+                             LM_CARD_REHEARSE_PLAN, arch.split("-")[0])
+        add(res["launches"])
+        out[arch] = res
+        del model
+    out["launches"] = launches
     return out
 
 
@@ -3345,6 +3744,7 @@ def main(argv=None) -> int:
         engines_eleven_owners(torch, np, ops, sops, dev, args, "cpu", scale=0.002)
         engines_example(torch, np, dev, args, scale=4000)
         parties_path(torch, np, ck, al, dev, args, (1_000, 20, (4_000, 50, 12_000), 30))
+        lm_cards(torch, np, fa, ks, dev, args, "cpu")
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -3453,12 +3853,21 @@ def main(argv=None) -> int:
     log(f"parties: phase 18 took {two_parties['phase_s']:.1f}s")
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    cards = lm_cards(torch, np, fa, ks, dev, args, card)
+    cards["phase_s"] = time.perf_counter() - t0
+    log(f"lm cards: phase 19 took {cards['phase_s']:.1f}s")
+    torch.cuda.empty_cache()
+
     # each kernel's launches over the main paths that run it: serving (phase
     # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12),
     # the federation with its attached tier (phase 15), the storm (phase 16)
     # the tick engines at full width and over the eleven owners (phase 17,
-    # replays counted) and the two parties' retrieval (phase 18)
-    lm_launches = {**lm["qwen3-0.6b"]["launches"], **lm["mamba2-2.7b"]["launches"]}
+    # replays counted), the two parties' retrieval (phase 18) and the
+    # remaining LM cards (phase 19)
+    lm_launches = {name: lm["qwen3-0.6b"]["launches"].get(name, 0)
+                   + lm["mamba2-2.7b"]["launches"].get(name, 0) + cards["launches"][name]
+                   for name in ("flash_attention", "ssd_chunks")}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
                 + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
                 + fed["launches"].get(name, 0) + storm["launches"].get(name, 0)
@@ -3484,7 +3893,7 @@ def main(argv=None) -> int:
     result = {"card": card, "build_s": build_s, "sass": sass, "check_max_abs_err": worst,
               "serve": res,
               "train": train, "handshake": hs, "lm": lm, "federation": fed, "storm": storm,
-              "tick_engines": engines, "parties": two_parties,
+              "tick_engines": engines, "parties": two_parties, "lm_cards": cards,
               "timings": times,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

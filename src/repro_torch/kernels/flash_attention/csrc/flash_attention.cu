@@ -48,6 +48,12 @@
 // B fragments from shared memory. (A first version of this kernel split the
 // B fragments in every warp, and spent most of its instructions there.)
 //
+// Head dims: 32, 64, 112 (kimi-k2-1t: 14 k-steps of Q Kᵀ and 14 n-tiles of
+// O) and 128. Every Dh is a multiple of 16, so a row is whole 16-byte chunks
+// in both types and its padded stride Dh + PAD keeps 16-byte alignment; at
+// Dh 112 the fp32 stride 116 (= 20 mod 32 banks) still spreads a fragment's
+// 8 rows x 4 columns over 32 distinct banks.
+//
 // Staging: Q (through two buffers), then K and V tiles (K0, V0, K1, V1, ...)
 // go through a ring of three tile buffers by 16-byte cp.async copies, two
 // tiles in flight while one is split and multiplied: two __syncthreads per
@@ -120,16 +126,20 @@ constexpr size_t smem_bytes() {
 }
 
 // Copy rows [r0, r0 + 64) of a (rows, DH) matrix with row stride `ld` into
-// `dst`, zeros past `rows`.
+// `dst`, zeros past `rows`. The tile's 16-byte chunks need not be a multiple
+// of the block's threads (Dh 112 in bf16: 896 chunks over 256 threads).
 template <int DH, typename T>
 __device__ __forceinline__ void stage(T* dst, const T* src, long long ld, int r0, int rows,
                                       int tid) {
   constexpr int CH = 16 / sizeof(T);
   constexpr int PER_ROW = DH / CH;
   constexpr int LD = DH + Elem<T>::PAD;
+  constexpr int CHUNKS = BK * PER_ROW;
+  static_assert(DH % CH == 0, "rows are copied in 16-byte chunks");
 #pragma unroll
-  for (int i = 0; i < BK * PER_ROW / THREADS; ++i) {
+  for (int i = 0; i < (CHUNKS + THREADS - 1) / THREADS; ++i) {
     const int idx = tid + THREADS * i;
+    if (CHUNKS % THREADS != 0 && idx >= CHUNKS) break;
     const int r = idx / PER_ROW, c = CH * (idx % PER_ROW);
     const bool ok = r0 + r < rows;
     cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * ld + c : src, ok);
@@ -140,6 +150,7 @@ __device__ __forceinline__ void stage(T* dst, const T* src, long long ld, int r0
 template <int DH>
 __device__ __forceinline__ void split_tile(float* tile, float* lo, int tid) {
   constexpr int LD = DH + 4;
+  static_assert(BK * DH / 4 % THREADS == 0, "a whole number of float4s per thread");
 #pragma unroll
   for (int i = 0; i < BK * DH / 4 / THREADS; ++i) {
     const int f = tid + THREADS * i;
@@ -378,6 +389,7 @@ int dispatch(const Params& p, int B, int H, int dh, cudaStream_t stream) {
   switch (dh) {
     case 32: return launch<32, T>(p, B, H, stream);
     case 64: return launch<64, T>(p, B, H, stream);
+    case 112: return launch<112, T>(p, B, H, stream);  // kimi-k2-1t
     case 128: return launch<128, T>(p, B, H, stream);
     default: return (int)cudaErrorInvalidValue;
   }

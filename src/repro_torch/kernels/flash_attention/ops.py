@@ -34,8 +34,8 @@ LIBRARIES = (FLASH_LIB,)
 #: kernel launches since the last ``reset_launches``
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernel is instantiated for (112: kimi-k2-1t)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

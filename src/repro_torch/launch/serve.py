@@ -7,6 +7,11 @@ of the JAX package's ``launch/serve.py``, with the same flags plus
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --reduced \\
       --device cpu
 
+Every card serves here: an encoder-decoder card (whisper) gets zero frames
+(B, ``encoder_seq``, d) and a VLM card (internvl) zero patches (B,
+``num_patches``, d) in front of the prompt, as the JAX script passes them;
+``generate`` takes seeded ones too.
+
 The model runs at fp32 with random weights drawn from ``--seed``. Greedy
 decoding (``--temperature 0``) gives the tokens the JAX package's
 ``launch/serve.py`` would from the same weights; sampling draws from a
@@ -42,24 +47,36 @@ def _pick(logits: torch.Tensor, temperature: float,
 
 
 def generate(model, prompts: np.ndarray, gen: int, *, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> Tuple[np.ndarray, dict]:
-    """Batched prefill of ``prompts`` (B, P) then ``gen − 1`` decode steps →
-    (tokens (B, gen), host-clock seconds of the prefill and the decode, each
-    ended by a synchronise)."""
+             generator: Optional[torch.Generator] = None,
+             frames: Optional[torch.Tensor] = None,
+             patches: Optional[torch.Tensor] = None) -> Tuple[np.ndarray, dict]:
+    """Batched prefill of ``prompts`` (B, P) — against the encoder's output
+    of ``frames``, behind ``patches`` — then ``gen − 1`` decode steps, offset
+    by the patches → (tokens (B, gen), host-clock seconds of the prefill and
+    the decode, each ended by a synchronise). ``frames`` and ``patches``
+    default to zeros where the card takes them."""
+    cfg = model.cfg
     dev = model.device
     b, p = prompts.shape
-    cache = model.init_cache(b, p + gen + model.cfg.num_patches)
+    if cfg.encoder_layers and frames is None:
+        frames = torch.zeros(b, cfg.encoder_seq, cfg.d_model, device=dev)
+    offset = 0
+    if cfg.num_patches:
+        if patches is None:
+            patches = torch.zeros(b, cfg.num_patches, cfg.d_model, device=dev)
+        offset = patches.shape[1]
+    cache = model.init_cache(b, p + gen + offset)
     tokens = torch.as_tensor(prompts, device=dev, dtype=torch.long)
     _sync(dev)
     t0 = time.perf_counter()
-    logits = model.prefill(tokens, cache)
+    logits = model.prefill(tokens, cache, frames=frames, patches=patches)
     tok = _pick(logits[:, -1], temperature, generator)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     out = [tok]
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits = model.decode_step(tok, cache, model.cfg.num_patches + p + i)
+        logits = model.decode_step(tok, cache, offset + p + i)
         tok = _pick(logits[:, -1], temperature, generator)
         out.append(tok)
     generated = torch.cat(out, dim=1).cpu().numpy()

@@ -11,7 +11,12 @@ Decode stays plain PyTorch, as the JAX decode is plain jnp.
 
 KV caches are dicts ``{"k", "v"}`` of (B, T, KV, Dh) tensors that prefill
 and decode update in place (the JAX functions return new arrays).
-Cross-attention (``kv_x``, whisper) waits for the encoder-decoder slice.
+
+Cross-attention (whisper's decoder, ``cross=True``: no qk-norm, no RoPE)
+takes K and V from the encoder output ``kv_x`` (T = ``encoder_seq`` ≠ S)
+through the same kernel, non-causal and without a window. Prefill writes the
+encoder's K/V once into the layer's ``cross_kv`` cache, and decode attends
+all of it in plain PyTorch, as the JAX ``decode_attention(kv_memory=...)``.
 """
 from __future__ import annotations
 
@@ -52,7 +57,7 @@ def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device=None) -> dict:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, *, device=None, dtype=None):
+    def __init__(self, cfg, *, cross: bool = False, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
@@ -62,7 +67,7 @@ class Attention(nn.Module):
         self.wv = Linear(d, cfg.kv_dim, **kw)
         self.wo = Linear(cfg.q_dim, d, **kw)
         self.q_norm = self.k_norm = None
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.q_norm = RMSNorm(cfg.head_dim, cfg.norm_eps, device=device, dtype=dtype)
             self.k_norm = RMSNorm(cfg.head_dim, cfg.norm_eps, device=device, dtype=dtype)
 
@@ -71,16 +76,19 @@ class Attention(nn.Module):
         for lin in (self.wq, self.wk, self.wv, self.wo):
             lin.reset_parameters(generator)
 
-    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """(q (B, S, H, Dh), k, v (B, S, KV, Dh)) with qk-norm and RoPE."""
+    def _qkv(self, x: torch.Tensor, positions: Optional[torch.Tensor],
+             kv_x: Optional[torch.Tensor] = None):
+        """(q (B, S, H, Dh), k, v (B, T, KV, Dh)) with qk-norm, and RoPE at
+        ``positions`` unless K and V come from ``kv_x``."""
         cfg = self.cfg
+        src = x if kv_x is None else kv_x
         q = _split_heads(self.wq(x), cfg.num_heads, cfg.head_dim)
-        k = _split_heads(self.wk(x), cfg.num_kv_heads, cfg.head_dim)
-        v = _split_heads(self.wv(x), cfg.num_kv_heads, cfg.head_dim)
+        k = _split_heads(self.wk(src), cfg.num_kv_heads, cfg.head_dim)
+        v = _split_heads(self.wv(src), cfg.num_kv_heads, cfg.head_dim)
         if self.q_norm is not None:
             q = self.q_norm(q)
             k = self.k_norm(k)
-        if cfg.rope_theta > 0:
+        if kv_x is None and cfg.rope_theta > 0:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
@@ -95,12 +103,30 @@ class Attention(nn.Module):
         return ctx.transpose(1, 2).reshape(b, s, -1)
 
     def forward(self, x: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
-                causal: bool = True) -> torch.Tensor:
-        """Full-sequence attention (train / prefill / encoder). x: (B, S, d)."""
-        if positions is None:
+                causal: bool = True, kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence attention (train / prefill / encoder / cross). x:
+        (B, S, d); with ``kv_x`` (B, T, d), K and V come from it and the
+        attention is non-causal."""
+        if kv_x is None and positions is None:
             positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        q, k, v = self._qkv(x, positions)
-        return self.wo(self._flash(q, k, v, causal=causal))
+        q, k, v = self._qkv(x, positions, kv_x)
+        return self.wo(self._flash(q, k, v, causal=causal and kv_x is None))
+
+    def prefill_cross(self, x: torch.Tensor, kv_x: torch.Tensor, memory: dict) -> torch.Tensor:
+        """Cross-attention over ``kv_x`` that also writes its K/V into
+        ``memory`` (B, T, KV, Dh), the cache decode attends."""
+        q, k, v = self._qkv(x, None, kv_x)
+        memory["k"].copy_(k)
+        memory["v"].copy_(v)
+        return self.wo(self._flash(q, k, v, causal=False))
+
+    def decode_memory(self, x: torch.Tensor, memory: dict) -> torch.Tensor:
+        """One token per row, x (B, 1, d), attending every row of
+        ``memory``'s K/V (the encoder's, written by ``prefill_cross``)."""
+        cfg = self.cfg
+        q = _split_heads(self.wq(x), cfg.num_heads, cfg.head_dim)
+        scores = _gqa_scores(q, memory["k"], cfg.num_kv_heads) / math.sqrt(cfg.head_dim)
+        return self.wo(_gqa_out(torch.softmax(scores, dim=-1), memory["v"]))
 
     def prefill(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
         """Causal attention over x (B, S, d) that also writes K/V into the

@@ -7,9 +7,10 @@ over the repeats; here the layers are an ``nn.ModuleList`` and layer ``i``
 has the kind of period position ``i % period`` (``layout`` is kept so the
 weight loader can find repeat ``i // period``).
 
-This slice carries attention and Mamba2 mixers with a dense or no FFN. A MoE
-FFN (mixtral, kimi, jamba) and cross-attention (whisper) raise
-``NotImplementedError`` and wait for their slices.
+A layer is an attention or Mamba2 mixer, then (enc-dec decoder layers) a
+cross-attention over the encoder output, then a dense, MoE or no FFN. Every
+pass returns the layer's MoE auxiliary loss beside ``h`` (0 without a MoE
+FFN), as the JAX ``apply_layer`` does.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from torch import nn
 
 from repro_torch.models.attention import Attention, init_kv_cache
 from repro_torch.models.layers import MLP, make_norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2Mixer, init_ssm_cache
 
 
@@ -58,17 +60,12 @@ def layout(cfg) -> Tuple[int, int, List[LayerKind]]:
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm residual layer: ``h + mixer(norm(h))``, then ``h +
-    mlp(norm(h))`` when the FFN is dense."""
+    """Pre-norm residual layer: ``h + mixer(norm(h))``; with ``kind.cross``,
+    ``h + cross_attn(norm(h), encoder)``; then ``h + ffn(norm(h))`` for a
+    dense or MoE FFN."""
 
     def __init__(self, cfg, kind: LayerKind, *, device=None, dtype=None):
         super().__init__()
-        if kind.cross:
-            raise NotImplementedError(
-                "cross-attention layers (whisper) wait for the encoder-decoder slice")
-        if kind.ffn == "moe":
-            raise NotImplementedError(
-                "MoE FFN layers (mixtral, kimi, jamba) wait for the MoE slice")
         self.cfg = cfg
         self.kind = kind
         kw = dict(device=device, dtype=dtype)
@@ -76,53 +73,91 @@ class DecoderLayer(nn.Module):
         self.norm_mixer = make_norm(d, cfg.norm, cfg.norm_eps, **kw)
         self.attn = Attention(cfg, **kw) if kind.mixer == "attn" else None
         self.ssm = Mamba2Mixer(cfg, **kw) if kind.mixer == "ssm" else None
-        self.norm_ffn = self.mlp = None
-        if kind.ffn == "dense":
+        self.norm_cross = self.cross_attn = None
+        if kind.cross:
+            self.norm_cross = make_norm(d, cfg.norm, cfg.norm_eps, **kw)
+            self.cross_attn = Attention(cfg, cross=True, **kw)
+        self.norm_ffn = self.mlp = self.moe = None
+        if kind.ffn != "none":
             self.norm_ffn = make_norm(d, cfg.norm, cfg.norm_eps, **kw)
+        if kind.ffn == "dense":
             self.mlp = MLP(d, cfg.d_ff, cfg.act, bias=cfg.qkv_bias, **kw)
+        elif kind.ffn == "moe":
+            self.moe = MoE(cfg, **kw)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Draw the mixer's weights, then the MLP's (norms stay ones)."""
+        """Draw the mixer's weights, the cross-attention's, then the FFN's
+        (norms stay ones)."""
         (self.attn or self.ssm).reset_parameters(generator)
+        if self.cross_attn is not None:
+            self.cross_attn.reset_parameters(generator)
         if self.mlp is not None:
             for lin in (self.mlp.up, self.mlp.down, self.mlp.gate):
                 if lin is not None:
                     lin.reset_parameters(generator)
+        if self.moe is not None:
+            self.moe.reset_parameters(generator)
 
-    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        if self.mlp is None:
+    def _cross(self, h: torch.Tensor, encoder_out: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.cross_attn is None or encoder_out is None:
             return h
-        return h + self.mlp(self.norm_ffn(h))
+        return h + self.cross_attn(self.norm_cross(h), kv_x=encoder_out, causal=False)
+
+    def _ffn(self, h: torch.Tensor, moe_groups: str = "joint"):
+        """→ (h after the FFN, the MoE aux loss or 0)."""
+        if self.mlp is not None:
+            return h + self.mlp(self.norm_ffn(h)), h.new_zeros((), dtype=torch.float32)
+        if self.moe is not None:
+            y, aux = self.moe(self.norm_ffn(h), groups=moe_groups)
+            return h + y, aux
+        return h, h.new_zeros((), dtype=torch.float32)
 
     def forward(self, h: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
-                causal: bool = True) -> torch.Tensor:
+                causal: bool = True, encoder_out: Optional[torch.Tensor] = None):
+        """Full-sequence layer (train / encoder) → (h, aux)."""
         x = self.norm_mixer(h)
         if self.attn is not None:
             y = self.attn(x, positions=positions, causal=causal)
         else:
             y, _ = self.ssm(x)
-        return self._ffn(h + y)
+        return self._ffn(self._cross(h + y, encoder_out))
 
-    def prefill(self, h: torch.Tensor, cache: dict) -> torch.Tensor:
+    def prefill(self, h: torch.Tensor, cache: dict,
+                encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Prefill that fills this layer's cache; a cross layer also writes
+        the encoder's K/V into ``cache["cross_kv"]`` once, for decode."""
         x = self.norm_mixer(h)
         if self.attn is not None:
             y = self.attn.prefill(x, cache["kv"])
         else:
             y = self.ssm.prefill(x, cache["ssm"])
-        return self._ffn(h + y)
+        h = h + y
+        if self.cross_attn is not None and encoder_out is not None:
+            h = h + self.cross_attn.prefill_cross(self.norm_cross(h), encoder_out,
+                                                  cache["cross_kv"])
+        return self._ffn(h)[0]
 
-    def decode(self, h: torch.Tensor, cache: dict, pos: torch.Tensor) -> torch.Tensor:
+    def decode(self, h: torch.Tensor, cache: dict, pos: torch.Tensor,
+               moe_groups: str = "joint") -> torch.Tensor:
         x = self.norm_mixer(h)
         if self.attn is not None:
             y = self.attn.decode(x, cache["kv"], pos)
         else:
             y = self.ssm.decode(x, cache["ssm"])
-        return self._ffn(h + y)
+        h = h + y
+        if self.cross_attn is not None:
+            h = h + self.cross_attn.decode_memory(self.norm_cross(h), cache["cross_kv"])
+        return self._ffn(h, moe_groups)[0]
 
 
 def init_layer_cache(cfg, kind: LayerKind, batch: int, cache_len: int, dtype,
                      device=None) -> dict:
+    c = {}
     if kind.mixer == "attn":
-        return {"kv": init_kv_cache(cfg, batch, cache_len, dtype, device)}
-    return {"ssm": init_ssm_cache(cfg, batch, dtype, device)}
+        c["kv"] = init_kv_cache(cfg, batch, cache_len, dtype, device)
+    else:
+        c["ssm"] = init_ssm_cache(cfg, batch, dtype, device)
+    if kind.cross:
+        c["cross_kv"] = init_kv_cache(cfg, batch, cfg.encoder_seq, dtype, device)
+    return c

@@ -1,5 +1,5 @@
-"""The decoder-only language model: init, forward, prefill and decode — the
-port of the JAX package's ``models/model.py``.
+"""The language model: init, forward, prefill and decode for every card —
+the port of the JAX package's ``models/model.py``.
 
 ``CausalLM`` holds its layers in an ``nn.ModuleList`` where the JAX package
 stacks them ``repeats × period`` and scans; ``lm_params_from_numpy`` carries
@@ -7,10 +7,16 @@ the JAX package's parameters across (layer ``i`` is repeat ``i // period``
 of period position ``i % period``). Caches are lists of per-layer dicts that
 ``prefill`` and ``decode_step`` update in place.
 
-This slice serves decoder-only cards with attention and Mamba2 mixers and
-dense FFNs (qwen3-0.6b, mamba2-2.7b, qwen2.5, starcoder2, deepseek-coder):
-encoder inputs (whisper) and patch inputs (internvl) raise, and so do MoE
-layers (``blocks.DecoderLayer``).
+Beyond the decoder stack: an encoder-decoder card (whisper) runs an encoder
+over stubbed frame embeddings (``frames=``, (B, ``encoder_seq``, d):
+``frame_proj``, sinusoidal positions, ``encoder_layers`` non-causal
+layers, a final norm) whose output the decoder's cross-attention reads, and
+adds learned positions (clamped to the table's last row) to the token
+embeddings; a VLM card (internvl) prepends ``patch_proj(patches)``
+(``patches=``, (B, ``num_patches``, d)) to them, so prefill fills cache rows
+``[0, num_patches + S)``. MoE layers route jointly over a call's tokens,
+unless ``decode_step(moe_groups="row")`` asks for one group per row (the
+serving engine's slots).
 """
 from __future__ import annotations
 
@@ -21,19 +27,37 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.models.blocks import DecoderLayer, init_layer_cache, layout
-from repro_torch.models.layers import Embedding, Linear, dtype_of, make_norm, unembed
+from repro_torch.models.blocks import DecoderLayer, LayerKind, init_layer_cache, layout
+from repro_torch.models.layers import (
+    Embedding, Linear, dtype_of, make_norm, normal_, sinusoidal_positions, unembed)
+
+ENCODER_KIND = LayerKind("attn", "dense", cross=False)
+
+
+class Encoder(nn.Module):
+    """Whisper-style encoder over stubbed frame embeddings (B, S_enc, d)."""
+
+    def __init__(self, cfg, **kw):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.frame_proj = Linear(d, d, **kw)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, ENCODER_KIND, **kw)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = make_norm(d, cfg.norm, cfg.norm_eps, **kw)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        h = self.frame_proj(frames.to(self.frame_proj.weight.dtype))
+        h = h + sinusoidal_positions(frames.shape[1], self.cfg.d_model,
+                                     device=h.device).to(h.dtype)[None]
+        for layer in self.layers:
+            h, _ = layer(h, causal=False)
+        return self.final_norm(h)
 
 
 class CausalLM(nn.Module):
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        if cfg.encoder_layers or cfg.learned_pos_emb:
-            raise NotImplementedError(
-                "encoder inputs and learned positions (whisper) wait for the "
-                "encoder-decoder slice")
-        if cfg.num_patches:
-            raise NotImplementedError("patch inputs (internvl) wait for the VLM slice")
         self.cfg = cfg
         kw = dict(device=resolve_device(device), dtype=dtype_of(cfg))
         d = cfg.d_model
@@ -43,6 +67,10 @@ class CausalLM(nn.Module):
             DecoderLayer(cfg, kinds[i % period], **kw) for i in range(cfg.num_layers))
         self.final_norm = make_norm(d, cfg.norm, cfg.norm_eps, **kw)
         self.unembed = None if cfg.tie_embeddings else Linear(d, cfg.padded_vocab, **kw)
+        self.pos_emb = (nn.Parameter(torch.empty(cfg.learned_pos_emb, d, **kw))
+                        if cfg.learned_pos_emb else None)
+        self.encoder = Encoder(cfg, **kw) if cfg.encoder_layers else None
+        self.patch_proj = Linear(d, d, **kw) if cfg.num_patches else None
 
     @property
     def device(self) -> torch.device:
@@ -55,14 +83,43 @@ class CausalLM(nn.Module):
             return unembed(self.embed.weight, h)
         return self.unembed(h).float()
 
-    # ------------------------------------------------------------ passes
-    def forward(self, tokens: torch.Tensor, *,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """tokens (B, S) → logits (B, S, V_pad) fp32."""
+    def _encode(self, frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if self.encoder is None:
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name} is an encoder-decoder card: pass frames= "
+                             f"(B, {self.cfg.encoder_seq}, {self.cfg.d_model})")
+        return self.encoder(frames)
+
+    def _embed(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings, plus learned positions (``positions``, default
+        ``0..S−1``, clamped to the table), with the projected patches in
+        front."""
         h = self.embed(tokens)
+        if self.pos_emb is not None:
+            if positions is None:
+                positions = torch.arange(tokens.shape[1], device=h.device)[None, :]
+            positions = positions.clamp(max=self.cfg.learned_pos_emb - 1)
+            h = h + self.pos_emb[positions].expand(h.shape)
+        if self.patch_proj is not None and patches is not None:
+            h = torch.cat([self.patch_proj(patches.to(h.dtype)), h], dim=1)
+        return h
+
+    # ------------------------------------------------------------ passes
+    def forward(self, tokens: torch.Tensor, *, frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None, return_aux: bool = False):
+        """tokens (B, S) → logits (B, S', V_pad) fp32 (S' = S plus the
+        patches), and the layers' summed MoE aux loss with ``return_aux``."""
+        encoder_out = self._encode(frames)
+        h = self._embed(tokens, patches, positions)
+        aux = h.new_zeros((), dtype=torch.float32)
         for layer in self.layers:
-            h = layer(h, positions=positions)
-        return self._logits(h)
+            h, a = layer(h, positions=positions, encoder_out=encoder_out)
+            aux = aux + a
+        logits = self._logits(h)
+        return (logits, aux) if return_aux else logits
 
     def init_cache(self, batch: int, cache_len: int, dtype=None) -> List[Dict]:
         dtype = dtype or dtype_of(self.cfg)
@@ -70,34 +127,43 @@ class CausalLM(nn.Module):
                 for layer in self.layers]
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache: List[Dict]) -> torch.Tensor:
-        """Full forward over tokens (B, S) that fills the cache prefix
-        (attention K/V rows ``[0, S)``, SSM state and conv tail) → the last
-        position's logits (B, 1, V_pad)."""
-        h = self.embed(tokens)
+    def prefill(self, tokens: torch.Tensor, cache: List[Dict], *,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full forward over tokens (B, S) — behind the patches, against the
+        encoder's output of the frames — that fills the cache prefix
+        (attention K/V rows ``[0, S')``, SSM state and conv tail, the
+        encoder's K/V of each cross layer) → the last position's logits
+        (B, 1, V_pad)."""
+        encoder_out = self._encode(frames)
+        h = self._embed(tokens, patches)
         for layer, c in zip(self.layers, cache):
-            h = layer.prefill(h, c)
+            h = layer.prefill(h, c, encoder_out)
         return self._logits(h[:, -1:, :])
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, cache: List[Dict], pos) -> torch.Tensor:
+    def decode_step(self, token: torch.Tensor, cache: List[Dict], pos, *,
+                    moe_groups: str = "joint") -> torch.Tensor:
         """One token per row: token (B, 1), ``pos`` each row's write position
-        (an int for all rows, or a (B,) tensor) → logits (B, 1, V_pad)."""
+        (an int for all rows, or a (B,) tensor) → logits (B, 1, V_pad).
+        ``moe_groups="row"`` routes each row's token through the MoE layers
+        alone (capacity counted over one token)."""
         b = token.shape[0]
         pos = torch.as_tensor(pos, device=token.device, dtype=torch.long)
         if pos.dim() == 0:
             pos = pos.expand(b)
-        h = self.embed(token)
+        h = self._embed(token, positions=pos[:, None])
         for layer, c in zip(self.layers, cache):
-            h = layer.decode(h, c, pos)
+            h = layer.decode(h, c, pos, moe_groups)
         return self._logits(h)
 
 
 @torch.no_grad()
 def init_params(cfg, generator: Optional[torch.Generator] = None, *, device=None) -> CausalLM:
-    """A ``CausalLM`` with the JAX package's init laws (embedding N(0, 1)·0.02,
-    linears N(0, 1)/sqrt(d_in), zero biases, unit norms, the Mamba2 laws of
-    ``ssm.Mamba2Mixer.reset_parameters``), drawn from ``generator`` (default:
+    """A ``CausalLM`` with the JAX package's init laws (embedding and learned
+    positions N(0, 1)·0.02, linears N(0, 1)/sqrt(d_in), zero biases, unit
+    norms, the Mamba2 laws of ``ssm.Mamba2Mixer.reset_parameters``, the MoE
+    laws of ``moe.MoE.reset_parameters``), drawn from ``generator`` (default:
     seed 0 on the device). The numbers differ from the JAX package's, whose
     ``jax.random`` draws PyTorch cannot reproduce: carry those across with
     ``lm_params_from_numpy``."""
@@ -112,6 +178,14 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, *, device=None
         layer.reset_parameters(generator)
     if model.unembed is not None:
         model.unembed.reset_parameters(generator)
+    if model.pos_emb is not None:
+        normal_(model.pos_emb, generator, 0.02)
+    if model.encoder is not None:
+        model.encoder.frame_proj.reset_parameters(generator)
+        for layer in model.encoder.layers:
+            layer.reset_parameters(generator)
+    if model.patch_proj is not None:
+        model.patch_proj.reset_parameters(generator)
     return model
 
 
@@ -136,11 +210,20 @@ def lm_params_from_numpy(cfg, tree: dict) -> Dict[str, torch.Tensor]:
     """The JAX package's ``init_params`` tree (numpy leaves; each layer
     stack ``(repeats, …)`` per period position) → this port's ``CausalLM``
     state dict (CPU float32 tensors; ``load_state_dict`` casts and moves
-    them). Layer ``i`` is repeat ``i // period`` of position ``i % period``."""
+    them). Layer ``i`` is repeat ``i // period`` of position ``i % period``;
+    encoder layer ``i`` is repeat ``i`` of the encoder's one stack. Expert
+    stacks keep their (E, d, f) layout."""
     _, period, _ = layout(cfg)
     out: Dict[str, torch.Tensor] = {}
-    _flatten({k: v for k, v in tree.items() if k != "layers"}, "", lambda v: v, out)
+    _flatten({k: v for k, v in tree.items() if k not in ("layers", "encoder")}, "",
+             lambda v: v, out)
     for i in range(cfg.num_layers):
         r, p = divmod(i, period)
         _flatten(tree["layers"][p], f"layers.{i}.", lambda v, r=r: np.asarray(v)[r], out)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        _flatten({k: v for k, v in enc.items() if k != "layers"}, "encoder.", lambda v: v, out)
+        for i in range(cfg.encoder_layers):
+            _flatten(enc["layers"][0], f"encoder.layers.{i}.",
+                     lambda v, i=i: np.asarray(v)[i], out)
     return out

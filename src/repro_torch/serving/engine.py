@@ -224,7 +224,15 @@ class ServingEngine:
 
     ``model`` is a ``CausalLM`` of ``cfg``; it is moved to ``device``
     (``None``: the current CUDA card, which is required unless the CPU is
-    asked for). The cache is updated in place. A request whose prompt plus
+    asked for). The cache is updated in place. MoE layers route each slot's
+    token as its own group (``decode_step(moe_groups="row")``): the JAX
+    engine decodes every slot alone under ``vmap``, so capacity counts one
+    token and a request's tokens never depend on its neighbours. A VLM
+    card's slot is prefilled without patches, yet its length counts
+    ``num_patches``, as in the JAX engine: its first decode writes at row
+    ``P + num_patches`` and attends the zero rows ``[P, P + num_patches)``.
+    Encoder-decoder cards are refused, as the JAX engine refuses them. A
+    request whose prompt plus
     ``max_new_tokens`` exceeds ``max_len`` is refused at ``submit`` (the JAX
     engine's ``dynamic_update_slice`` would clamp its writes to the last
     cache row instead). The JAX engine's ``seed`` is left out: greedy
@@ -301,7 +309,7 @@ class ServingEngine:
             return 0
         tok = torch.as_tensor(self.last_token, device=self.device, dtype=torch.long)
         pos = torch.as_tensor(self.lengths, device=self.device, dtype=torch.long)
-        logits = self.model.decode_step(tok, self.cache, pos)
+        logits = self.model.decode_step(tok, self.cache, pos, moe_groups="row")
         nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy().astype(np.int32)
         for slot in active:
             req = self.slot_req[slot]

@@ -5,12 +5,15 @@ import numpy as np
 import torch
 
 
-def batch1_greedy(model, prompt, n: int, *, device=None):
+def batch1_greedy(model, prompt, n: int, *, device=None, offset: int = 0, **inputs):
     """Greedy tokens of ``prompt`` alone through ``prefill`` + ``decode_step``
-    → (tokens (n,), the fp32 logits each token was picked from (n, V))."""
+    → (tokens (n,), the fp32 logits each token was picked from (n, V)).
+    ``inputs`` (``frames=``, ``patches=``, batch 1) go to the prefill, and
+    decode positions start ``offset`` past the prompt."""
     dev = device or model.device
-    cache = model.init_cache(1, len(prompt) + n)
-    logits = model.prefill(torch.as_tensor(np.asarray(prompt)[None], device=dev).long(), cache)
+    cache = model.init_cache(1, offset + len(prompt) + n)
+    logits = model.prefill(torch.as_tensor(np.asarray(prompt)[None], device=dev).long(), cache,
+                           **inputs)
     toks, rows = [], []
     for i in range(n):
         row = logits[0, -1]
@@ -18,7 +21,8 @@ def batch1_greedy(model, prompt, n: int, *, device=None):
         toks.append(tok)
         rows.append(row.float().cpu().numpy())
         if i + 1 < n:
-            logits = model.decode_step(torch.tensor([[tok]], device=dev), cache, len(prompt) + i)
+            logits = model.decode_step(torch.tensor([[tok]], device=dev), cache,
+                                       offset + len(prompt) + i)
     return np.array(toks), np.stack(rows)
 
 

@@ -981,6 +981,7 @@ FLASH_CASES = [
     (1, 2, 1, 1, 128, True, 0),       # one token
     (4, 16, 8, 2048, 128, True, 0),   # the serve script's batch 4 x 2,048
     (1, 16, 8, 2049, 128, True, 0),   # one past the 64-row tiles
+    (1, 64, 8, 1024, 112, True, 0),   # kimi-k2-1t's heads: Dh 112
 ]
 
 
@@ -1004,6 +1005,27 @@ def test_flash_attention_matches_plain(cuda_dev, b, h, kv, s, dh, causal, window
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == dtype and got.stride() == q.stride()
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2.0 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,s,t,dh", [(2, 16, 16, 333, 1500, 64),    # whisper's cross
+                                           (1, 8, 2, 1000, 77, 112)])
+def test_flash_attention_cross_s_not_t(cuda_dev, b, h, kv, s, t, dh, dtype):
+    """Non-causal attention of S queries over T ≠ S keys (the decoder's
+    cross-attention over the encoder's frames) against the plain version,
+    with the tolerances of ``test_flash_attention_matches_plain``."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_dev).manual_seed(s + t)
+    q = torch.randn(b, s, h, dh, device=cuda_dev, generator=g).to(dtype).transpose(1, 2)
+    k = torch.randn(b, t, kv, dh, device=cuda_dev, generator=g).to(dtype).transpose(1, 2)
+    v = torch.randn(b, t, kv, dh, device=cuda_dev, generator=g).to(dtype).transpose(1, 2)
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
     atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-5, 2.0 ** -7)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -1235,20 +1257,25 @@ def test_ssd_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-2.7b", "mixtral-8x22b",
+                                  "jamba-1.5-large-398b", "kimi-k2-1t-a32b", "internvl2-26b"])
 def test_lm_engine_on_the_card_equals_the_cpu(cuda_dev, arch):
     """The reduced card served by ``ServingEngine`` on the card (kernels) and
     on the CPU (plain versions), same weights and ragged prompts: tokens
     equal up to near-ties (1e-4 of the CPU's logits), and the card's run
-    launched its kernel in every prefill."""
+    launched its kernels in every prefill, once per attention (SSM) layer.
+    The VLM card gets a slot per request: a recycled VLM slot attends its
+    previous request's rows, which no batch-1 run has."""
     from _torch_lm_check import assert_tokens_match, batch1_greedy
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ks
     from repro_torch.models import init_params
+    from repro_torch.models.blocks import layer_kinds
     from repro_torch.serving import ServingEngine
 
     cfg = reduced(get_config(arch)).replace(dtype="float32")
+    kinds = layer_kinds(cfg)
     cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     card = init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(cuda_dev)
     rng = np.random.default_rng(1)
@@ -1257,17 +1284,65 @@ def test_lm_engine_on_the_card_equals_the_cpu(cuda_dev, arch):
     ks.reset_launches()
     out = {}
     for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda_dev)):
-        eng = ServingEngine(model, cfg, max_batch=2, max_len=128, device=dev)
+        eng = ServingEngine(model, cfg, max_batch=len(prompts) if cfg.num_patches else 2,
+                            max_len=128, device=dev)
         for p in prompts:
             eng.submit(p, max_new_tokens=12)
         out[name] = {r.rid: r.generated for r in eng.run_until_drained()}
-    kernel = fa.LAUNCHES["flash_attention"] if arch.startswith("qwen") \
-        else ks.LAUNCHES["ssd_chunks"]
-    assert kernel == len(prompts) * cfg.num_layers
+    assert fa.LAUNCHES["flash_attention"] == len(prompts) * sum(k.mixer == "attn" for k in kinds)
+    assert ks.LAUNCHES["ssd_chunks"] == len(prompts) * sum(k.mixer == "ssm" for k in kinds)
     for rid, p in enumerate(prompts):
-        ref, logits = batch1_greedy(cpu, p, 12)
+        ref, logits = batch1_greedy(cpu, p, 12, offset=cfg.num_patches)
         assert_tokens_match(out["cpu"][rid], ref, logits, 1e-4)
         assert_tokens_match(out["card"][rid], ref, logits, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b", "mixtral-8x22b"])
+def test_lm_serve_on_the_card_equals_the_cpu(cuda_dev, arch):
+    """``launch/serve.generate`` of the reduced card with seeded frames or
+    patches on the card (kernels: the encoder, self- and cross-attention)
+    and on the CPU, same weights: logits of the batched prefill within
+    1e-4, tokens equal up to near-ties of the CPU's batch-1 logits (row 0;
+    MoE rows are coupled through capacity, so there the CPU's batched
+    tokens are the reference and the first tokens are compared)."""
+    from _torch_lm_check import assert_tokens_match, batch1_greedy
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = init_params(cfg, torch.Generator().manual_seed(0), device="cpu").to(cuda_dev)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, (3, 40)).astype(np.int32)
+    inputs = {}
+    if cfg.encoder_layers:
+        inputs["frames"] = torch.randn(3, cfg.encoder_seq, cfg.d_model,
+                                       generator=torch.Generator().manual_seed(3))
+    if cfg.num_patches:
+        inputs["patches"] = torch.randn(3, cfg.num_patches, cfg.d_model,
+                                        generator=torch.Generator().manual_seed(4))
+    on_card = {k: v.to(cuda_dev) for k, v in inputs.items()}
+    rows = 40 + cfg.num_patches
+    want = cpu.prefill(torch.from_numpy(prompts).long(), cpu.init_cache(3, rows), **inputs)
+    fa.reset_launches()
+    got = card.prefill(torch.from_numpy(prompts).long().to(cuda_dev), card.init_cache(3, rows),
+                       **on_card)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == cfg.encoder_layers + cfg.num_layers * (
+        2 if cfg.encoder_layers else 1)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    toks_cpu, _ = serve.generate(cpu, prompts, 8, **inputs)
+    toks_card, _ = serve.generate(card, prompts, 8, **on_card)
+    if cfg.moe.enabled:
+        assert (toks_card[:, 0] == toks_cpu[:, 0]).all()
+        return
+    ref, logits = batch1_greedy(cpu, prompts[0], 8, offset=cfg.num_patches,
+                                **{k: v[:1] for k, v in inputs.items()})
+    assert_tokens_match(toks_cpu[0], ref, logits, 1e-4)
+    assert_tokens_match(toks_card[0], ref, logits, 1e-4)
 
 
 @pytest.mark.cuda

@@ -16,7 +16,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
     REPO / "examples" / "federated_11kg_torch.py",
-    REPO / "examples" / "distributed_fkge_torch.py"]
+    REPO / "examples" / "distributed_fkge_torch.py", REPO / "examples" / "serve_engine_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -49,6 +49,7 @@ def test_port_files_exist():
                  "src/repro_torch/data/pipeline.py", "src/repro_torch/models/layers.py",
                  "src/repro_torch/models/attention.py", "src/repro_torch/models/ssm.py",
                  "src/repro_torch/models/blocks.py", "src/repro_torch/models/model.py",
+                 "src/repro_torch/models/moe.py", "examples/serve_engine_torch.py",
                  "src/repro_torch/kernels/flash_attention/ops.py",
                  "src/repro_torch/kernels/flash_attention/ref.py",
                  "src/repro_torch/kernels/ssd_scan/ops.py",

@@ -206,27 +206,50 @@ def test_ssm_block_matches_jax():
 
 # -------------------------------------------------------------------- model
 MODEL_CASES = [("qwen3-0.6b", {}), ("qwen3-0.6b", {"sliding_window": 16, "qkv_bias": True}),
-               ("mamba2-2.7b", {}), ("starcoder2-15b", {})]   # the last: LayerNorm, gelu
+               ("mamba2-2.7b", {}), ("starcoder2-15b", {}),   # the last: LayerNorm, gelu
+               ("mixtral-8x22b", {}), ("kimi-k2-1t-a32b", {}),  # MoE; kimi's shared expert
+               ("jamba-1.5-large-398b", {}),                    # Mamba2 + attention + MoE
+               ("internvl2-26b", {}), ("whisper-medium", {})]   # seeded patches; frames
+
+
+def _extra_inputs(jc, rng, b):
+    """Seeded frames (enc-dec) and patches (VLM) for a card, for both sides."""
+    jkw, tkw = {}, {}
+    if jc.encoder_layers:
+        fr = rng.standard_normal((b, jc.encoder_seq, jc.d_model)).astype(np.float32)
+        jkw["frames"], tkw["frames"] = jnp.asarray(fr), torch.from_numpy(fr)
+    if jc.num_patches:
+        pa = rng.standard_normal((b, jc.num_patches, jc.d_model)).astype(np.float32)
+        jkw["patches"], tkw["patches"] = jnp.asarray(pa), torch.from_numpy(pa)
+    return jkw, tkw
 
 
 @pytest.mark.parametrize("arch,kw", MODEL_CASES, ids=lambda v: str(v))
 def test_model_prefill_decode_and_forward_match_jax(arch, kw):
+    """Prefill (behind the patches, against the frames' encoding), two
+    decode steps after the prefix, and forward: logits, and forward's
+    summed MoE aux loss (within 1e-6)."""
     jc, params, tc, model = _jax_model(arch, **kw)
     rng = np.random.default_rng(7)
     toks = rng.integers(0, jc.vocab_size, (2, 45)).astype(np.int32)
-    want, jcache = jmodel.prefill(params, jc, jnp.asarray(toks), jmodel.init_cache(jc, 2, 64))
-    tcache = model.init_cache(2, 64)
-    got = model.prefill(torch.from_numpy(toks).long(), tcache)
+    jkw, tkw = _extra_inputs(jc, rng, 2)
+    n = jc.num_patches + 45   # rows prefill writes
+    want, jcache = jmodel.prefill(params, jc, jnp.asarray(toks),
+                                  jmodel.init_cache(jc, 2, n + 19), **jkw)
+    tcache = model.init_cache(2, n + 19)
+    got = model.prefill(torch.from_numpy(toks).long(), tcache, **tkw)
     np.testing.assert_allclose(_np(got), want, **TOL)
     for i in range(2):
         tok = rng.integers(0, jc.vocab_size, (2, 1)).astype(np.int32)
-        want, jcache = jmodel.decode_step(params, jc, jnp.asarray(tok), jcache, jnp.int32(45 + i))
-        got = model.decode_step(torch.from_numpy(tok).long(), tcache, 45 + i)
+        want, jcache = jmodel.decode_step(params, jc, jnp.asarray(tok), jcache, jnp.int32(n + i))
+        got = model.decode_step(torch.from_numpy(tok).long(), tcache, n + i)
         np.testing.assert_allclose(_np(got), want, **TOL)
-    want, _ = jmodel.forward(params, jc, jnp.asarray(toks[:, :32]))
+    want, want_aux = jmodel.forward(params, jc, jnp.asarray(toks[:, :32]), **jkw)
     with torch.no_grad():
-        got = model(torch.from_numpy(toks[:, :32]).long())
+        got, aux = model(torch.from_numpy(toks[:, :32]).long(), return_aux=True, **tkw)
     np.testing.assert_allclose(_np(got), want, **TOL)
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+    assert (float(want_aux) > 0) == jc.moe.enabled
 
 
 def test_weights_map_layer_i_to_repeat_and_position():
@@ -240,9 +263,28 @@ def test_weights_map_layer_i_to_repeat_and_position():
         np.testing.assert_array_equal(sd[f"layers.{i}.attn.wq.weight"].numpy(), w[i].T)
 
 
+@pytest.mark.parametrize("arch", sorted(jcfg.ARCHS))
+def test_loader_sets_every_parameter(arch):
+    """``lm_params_from_numpy`` of the JAX ``init_params`` tree names every
+    parameter of the port's reduced card, at its shape, and nothing else:
+    the MoE experts, the encoder's stack, learned positions, the patch
+    projection and the cross-attention included."""
+    jc, tc = _cfgs(arch)
+    params = jmodel.init_params(jax.random.PRNGKey(0), jc)
+    model = CausalLM(tc, device="cpu")
+    sd = lm_params_from_numpy(tc, jax.tree.map(np.asarray, params))
+    want = model.state_dict()
+    assert set(sd) == set(want)
+    assert all(sd[k].shape == want[k].shape for k in want)
+    n_jax = sum(np.asarray(x).size for x in jax.tree.leaves(params))
+    assert sum(t.numel() for t in sd.values()) == n_jax
+
+
 def test_init_params_laws_and_unported_cards():
     """The port's own init draws from a ``torch.Generator`` with the JAX
-    package's laws; MoE, encoder and patch cards wait for later slices."""
+    package's laws — Mamba2's, and for the MoE, encoder and patch cards
+    (mixtral, whisper, internvl) the router and experts, learned positions,
+    the frame and patch projections; every card builds."""
     cfg = tcfg.reduced(tcfg.get_config("mamba2-2.7b")).replace(dtype="float32", d_model=256)
     m = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     mix = m.layers[0].ssm
@@ -257,8 +299,28 @@ def test_init_params_laws_and_unported_cards():
     again = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(m.state_dict().values(),
                                                  again.state_dict().values()))
-    for arch, what in (("mixtral-8x22b", "MoE"), ("whisper-medium", "encoder"),
-                       ("internvl2-26b", "patch")):
-        with pytest.raises(NotImplementedError, match=what):
-            CausalLM(tcfg.reduced(tcfg.get_config(arch)).replace(dtype="float32"),
-                     device="cpu")
+
+    def law(t, std, tol=0.03):
+        return abs(float(t.std()) / std - 1) < tol
+
+    for arch in ("mixtral-8x22b", "whisper-medium", "internvl2-26b"):
+        cfg = tcfg.reduced(tcfg.get_config(arch)).replace(dtype="float32")
+        m = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+        m.requires_grad_(False)
+        d = cfg.d_model
+        assert law(m.embed.weight, 0.02)
+        if cfg.moe.enabled:
+            moe = m.layers[0].moe
+            assert moe.router.dtype == torch.float32 and law(moe.router, d ** -0.5, 0.1)
+            assert law(moe.w_gate, d ** -0.5) and law(moe.w_up, d ** -0.5)
+            assert law(moe.w_down, cfg.moe.d_ff ** -0.5)
+        if cfg.learned_pos_emb:
+            assert m.pos_emb.shape == (cfg.learned_pos_emb, d) and law(m.pos_emb, 0.02)
+            assert law(m.encoder.frame_proj.weight, d ** -0.5)
+            assert law(m.encoder.layers[1].attn.wq.weight, d ** -0.5)
+            assert law(m.layers[0].cross_attn.wk.weight, d ** -0.5)
+            assert float(m.layers[0].norm_cross.scale.min()) == 1.0
+        if cfg.num_patches:
+            assert law(m.patch_proj.weight, d ** -0.5)
+    for arch in sorted(tcfg.ARCHS):
+        CausalLM(tcfg.reduced(tcfg.get_config(arch)).replace(dtype="float32"), device="cpu")
