@@ -13,8 +13,10 @@ and resumed, and holds the batched tick engine (captured CUDA graphs)
 against the serial one at that width, over the paper's eleven owners and
 on the 11-KG example's universe, runs the paper's two-party topology
 (the PPAT exchange between two processes, the row-sharded KGE step) at
-full width, and serves the MoE, encoder-decoder and VLM cards (mixtral-8x22b,
-whisper-medium, internvl2-26b at full width; jamba and kimi reduced).
+full width, serves the MoE, encoder-decoder and VLM cards (mixtral-8x22b,
+whisper-medium, internvl2-26b at full width; jamba and kimi reduced), and
+trains qwen3-0.6b at its published width and depth through
+``repro_torch.train`` with the flash kernel in every attention forward.
 
     python3 chip_smoke.py            # one CUDA card; about eight minutes on an H100
 
@@ -251,6 +253,34 @@ Phases (every failed check ends the run with a non-zero exit):
    behind seeded patches (4, 256, 6,144), flash twice per prefill. d.
    reduced jamba (Mamba2 + attention + MoE) and kimi (a shared expert)
    through the engine, the flash and SSD counters at what the layers imply.
+20. LM training, fp32, TF32 off. a. qwen3-0.6b as published (28 layers,
+   0.596 B parameters, the card's remat), random weights from ``--seed``,
+   ``TRAIN_PLAN`` (global batch 8 x 2,048 tokens in 2 strided
+   microbatches, ``ce_chunk`` 512, AdamW at lr 1e-3, cosine over 8 steps
+   with 2 of warmup), ``SyntheticTextDataset`` batches, 8 steps. Step 1 is
+   held against the same step under ``plain_kernels()`` (the loss within
+   ``TRAIN_LOSS_RTOL``, the global gradient norm within
+   ``TRAIN_NORM_RTOL``, the parameters after the update within
+   ``TRAIN_RMS_LR`` lr root-mean-square and ``TRAIN_MAX_LR`` lr at most);
+   every loss finite; the loss of step 1's batch after step 8 below its
+   step-1 value; flash launched 8 x 28 layers x 2 microbatches x 2
+   (the forward and remat's recompute; the backward runs the plain
+   version). Step s (median of steps 2-8), tokens/s, the model and executed
+   FLOPs a token with their formulas, MFU against the fp32 peak (the TF32
+   one beside it), peak memory, and a device-only ``torch.profiler``
+   window of one step (idle share; the flash forward, the GEMMs and the
+   rest by kernel name; the plain attention backward between CUDA events
+   around each ``_FlashAttention.backward``). d. Its parameters saved under
+   ``build/`` in the reference's layout (``checkpoint.save_lm``) and
+   restored into a fresh model bit for bit: save and restore s and bytes;
+   the file is deleted. b. mixtral (the MoE aux), whisper (frames),
+   internvl (patches), mamba2 and jamba (the SSD) reduced, 3 steps each on
+   the card and on the CPU from the same weights and batches: losses
+   within ``TRAIN_CARD_LOSS_RTOL``, the parameters after step 1 as in a,
+   the flash and SSD launches as the layers imply. c.
+   ``examples/federated_lm_embeddings_torch.py`` at its defaults (losses
+   and epsilon finite, the verdict) and ``examples/train_lm_torch.py
+   --steps 20`` (its tokens/s).
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -262,7 +292,7 @@ launch lasts tens of ms, and its ``ms`` is the device time of one (as
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15-19 at a tiny size (the
+``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15-20 at a tiny size (the
 LM cards reduced) on the CPU with the plain versions (no kernels, no
 timings) and also exits non-zero.
 """
@@ -3686,6 +3716,437 @@ def parties_path(torch, np, ck, al, dev, args, sizes):
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------------------------ phase 20
+#: 20a's configuration: qwen3-0.6b as published (28 layers, remat on), fp32
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_PLAN = dict(global_batch=8, seq_len=2048, microbatches=2, ce_chunk=512,
+                  learning_rate=1e-3, warmup_steps=2, total_steps=8)
+TRAIN_REHEARSE_PLAN = dict(global_batch=4, seq_len=64, microbatches=2, ce_chunk=16,
+                           learning_rate=1e-3, warmup_steps=2, total_steps=8)
+#: 20b: reduced cards, card against CPU, ``TRAIN_CARD_STEPS`` steps each
+TRAIN_CARDS = ("mixtral-8x22b", "whisper-medium", "internvl2-26b", "mamba2-2.7b",
+               "jamba-1.5-large-398b")
+TRAIN_CARD_PLAN = dict(global_batch=4, seq_len=64, microbatches=2, ce_chunk=32,
+                       learning_rate=1e-3, warmup_steps=1, total_steps=3)
+TRAIN_CARD_STEPS = 3
+#: a step with the kernels against one with the plain versions: the loss
+#: within this relative difference, the global gradient norm within
+#: ``TRAIN_NORM_RTOL``; the parameters after the update, in units of lr:
+#: the root-mean-square difference within ``TRAIN_RMS_LR`` and every element
+#: within ``TRAIN_MAX_LR`` (Adam's first step moves an element by lr · g /
+#: (|g| + eps), at most lr, plus the decay; where |g| is near eps the two
+#: paths' last bits of g can move it anywhere within that, so the maximum
+#: is bounded by the step itself and the mean square carries the check)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_RMS_LR = 1e-3
+TRAIN_MAX_LR = 2.0
+TRAIN_CARD_LOSS_RTOL = 1e-4   # 20b: losses of a reduced card, card against CPU
+
+
+def train_flops_per_token(cfg, seq):
+    """(model FLOPs per token, FLOPs per token the step executes, the
+    formulas) of a dense attention card trained at sequence ``seq``: N_mm
+    the layers' matrix-product parameters, N_un the unembedding's, A the
+    causal attention forward per layer and token (QKᵀ and PV over (S + 1)/2
+    keys on average: 2·(S + 1)·H·Dh). Model: 6·(L·N_mm + N_un) + 3·L·A.
+    Executed adds remat's second forward of every layer (2·L·N_mm + L·A),
+    the plain attention forward the backward recomputes (L·A) and the
+    chunked CE's second unembedding (2·N_un)."""
+    d, L = cfg.d_model, cfg.num_layers
+    n_mm = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d + 3 * d * cfg.d_ff
+    n_un = cfg.padded_vocab * d
+    attn = 2 * (seq + 1) * cfg.num_heads * cfg.head_dim
+    model = 6 * (L * n_mm + n_un) + 3 * L * attn
+    executed = model + 2 * L * n_mm + 2 * L * attn + 2 * n_un
+    text = (f"model = 6*(L*N_mm + N_un) + 3*L*A, executed = model + 2*L*N_mm + 2*L*A + 2*N_un; "
+            f"L={L}, N_mm={n_mm:,} (d*(q_dim+2*kv_dim) + q_dim*d + 3*d*d_ff), N_un={n_un:,} "
+            f"(V_pad*d, tied), A={attn:,} (2*(S+1)*H*Dh, S={seq})")
+    return model, executed, text
+
+
+def update_diff_lr(torch, a, b, lr):
+    """(root-mean-square, max) of the difference of two parameter sets over
+    all their elements, in units of ``lr``."""
+    sq, n, worst = 0.0, 0, 0.0
+    for k, p in a.items():
+        d = (p.detach().float() - b[k].detach().float())
+        sq += float(torch.sum(d * d))
+        n += d.numel()
+        worst = max(worst, float(d.abs().max()))
+    return (sq / n) ** 0.5 / lr, worst / lr
+
+
+class BackwardClock:
+    """CUDA events around every ``_FlashAttention.backward`` (the plain
+    attention recomputed and differentiated): their summed device time over
+    a window, with no synchronise inside it."""
+
+    def __init__(self, torch, fops):
+        self.torch, self.fops, self.pairs = torch, fops, []
+
+    def __enter__(self):
+        fn = self.fops._FlashAttention.backward
+        torch = self.torch
+
+        def timed(ctx, grad_out):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(ctx, grad_out)
+            b.record()
+            self.pairs.append((a, b))
+            return out
+
+        self._saved = fn
+        self.fops._FlashAttention.backward = staticmethod(timed)
+        return self
+
+    def __exit__(self, *exc):
+        self.fops._FlashAttention.backward = staticmethod(self._saved)
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def kernel_shares(by_name):
+    """Device ms of a window's kernels by kind: the flash forward (the
+    kernel ``fa::attn_kernel``), GEMMs (cuBLAS and CUTLASS names, those of
+    the plain attention backward included), copies, the rest."""
+    out = {"flash_forward": 0.0, "gemm": 0.0, "memcpy": 0.0, "other": 0.0}
+    for name, us in by_name.items():
+        low = name.lower()
+        kind = ("flash_forward" if "attn_kernel" in low
+                else "gemm" if any(t in low for t in ("gemm", "cutlass", "cublas"))
+                else "memcpy" if "memcpy" in low else "other")
+        out[kind] += us / 1e3
+    return out
+
+
+def profile_train_step(torch, fops, fn):
+    """One training step under a device-only ``torch.profiler`` window, with
+    ``BackwardClock`` inside it: (wall ms, busy ms, idle share, ms by kind,
+    the plain attention backward's ms, the top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with BackwardClock(torch, fops) as clock, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = device_us_by_name(prof)
+    busy = sum(by_name.values()) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": None if busy == 0 else 1 - busy / wall_ms,
+            "by_kind_ms": kernel_shares(by_name), "attention_backward_ms": clock.ms(),
+            "top": [(k[:90], v / 1e3) for k, v in sorted(by_name.items(),
+                                                         key=lambda kv: -kv[1])[:8]]}
+
+
+def train_state_copy(torch, train, state, dev):
+    """A second ``TrainState`` with ``state``'s parameters and moments (the
+    plain-kernel step's)."""
+    from repro_torch.models import CausalLM
+
+    model = CausalLM(state.model.cfg, device=dev)
+    model.load_state_dict(state.model.state_dict())
+    opt = state.opt._replace(mu={k: v.to(dev, copy=True) for k, v in state.opt.mu.items()},
+                             nu={k: v.to(dev, copy=True) for k, v in state.opt.nu.items()})
+    return train.TrainState(model, opt)
+
+
+def lm_train(torch, np, fa, ks, dev, args, card):
+    """Phase 20a and 20d: qwen3-0.6b trained at its published width and
+    depth, a step held against the plain-kernel step, timed and profiled;
+    its checkpoint saved and restored."""
+    from repro_torch import train
+    from repro_torch.checkpoint import load_lm, save_lm
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.launch.train import batches, to_device
+    from repro_torch.models import CausalLM
+    from repro_torch.optim import global_norm
+
+    cuda = dev.type == "cuda"
+    cfg = get_config(TRAIN_ARCH)
+    cfg = (reduced(cfg) if args.rehearse else cfg).replace(dtype="float32")
+    check(cfg.remat, f"{cfg.name}: the card trains with remat")
+    plan = TRAIN_REHEARSE_PLAN if args.rehearse else TRAIN_PLAN
+    tcfg = TrainConfig(**plan)
+    steps, mb = tcfg.total_steps, tcfg.microbatches
+    tokens_per_step = tcfg.global_batch * tcfg.seq_len
+    attn_layers, _ = layer_counts(cfg)
+    # the design's flash launches a step: every attention layer, every
+    # microbatch, twice (the forward, and remat's recompute in the backward);
+    # the backward itself runs the plain version
+    flash_per_step = attn_layers * mb * 2
+    if cuda:
+        torch.cuda.synchronize(dev)   # the context exists before its statistics are reset
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train.init_train_state(torch.Generator(device=dev).manual_seed(args.seed), cfg,
+                                   device=dev)
+    data = [to_device(b, cfg, dev) for b in batches(cfg, batch=tcfg.global_batch,
+                                                    seq_len=tcfg.seq_len, steps=steps,
+                                                    seed=args.seed)]
+    sync(torch, dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"train {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"parameters at fp32, remat {cfg.remat_policy}, {steps} steps of {tcfg.global_batch} x "
+        f"{tcfg.seq_len} tokens in {mb} microbatches, ce_chunk {tcfg.ce_chunk} (set up in "
+        f"{time.perf_counter() - t0:.2f}s)")
+
+    # step 1 with the kernels, against the same step under plain_kernels()
+    grad_fn = train.make_grad_fn(cfg, tcfg)
+    plain_state = train_state_copy(torch, train, state, dev)
+    start = fa.LAUNCHES["flash_attention"]
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    loss_k, metrics_k, grads = grad_fn(state.model, data[0])
+    norm_k = float(global_norm(grads.values()))
+    state, lr = train.apply_update(state, grads, tcfg)
+    sync(torch, dev)
+    step_s = [time.perf_counter() - t0]
+    del grads
+    with plain_kernels():
+        loss_p, _, grads = grad_fn(plain_state.model, data[0])
+        norm_p = float(global_norm(grads.values()))
+        plain_state, _ = train.apply_update(plain_state, grads, tcfg)
+    del grads
+    lr = float(lr)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    rms, worst = update_diff_lr(torch, dict(state.model.named_parameters()),
+                                dict(plain_state.model.named_parameters()), lr)
+    del plain_state
+    if cuda:
+        torch.cuda.empty_cache()
+    loss_rel, norm_rel = abs(loss_k - loss_p) / abs(loss_p), abs(norm_k - norm_p) / norm_p
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train: the kernels' step-1 loss {loss_k} differs from "
+          f"the plain step's {loss_p} by {loss_rel:.3g} > {TRAIN_LOSS_RTOL}")
+    check(norm_rel <= TRAIN_NORM_RTOL, f"train: gradient norm {norm_k} vs plain {norm_p}: "
+          f"{norm_rel:.3g} > {TRAIN_NORM_RTOL}")
+    check(rms <= TRAIN_RMS_LR and worst <= TRAIN_MAX_LR,
+          f"train: parameters after step 1 differ from the plain step's by rms {rms:.3g} lr "
+          f"(tol {TRAIN_RMS_LR}), max {worst:.3g} lr (tol {TRAIN_MAX_LR})")
+    log(f"check train step 1, kernels against plain_kernels(): loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} ({loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}), gradient norm {norm_k:.6f} vs "
+        f"{norm_p:.6f} ({norm_rel:.3g}, tol {TRAIN_NORM_RTOL}), parameters after the update: "
+        f"rms {rms:.3g} lr (tol {TRAIN_RMS_LR}), max {worst:.3g} lr (tol {TRAIN_MAX_LR}) ok")
+
+    step = train.make_train_step(cfg, tcfg)
+    losses = [loss_k]
+    for i in range(1, steps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        state, m = step(state, data[i])
+        losses.append(float(m["loss"]))   # reads the loss: the step has finished
+        sync(torch, dev)
+        step_s.append(time.perf_counter() - t0)
+    flash = fa.LAUNCHES["flash_attention"] - start
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    if cuda:
+        check(flash == steps * flash_per_step,
+              f"train: flash launched {flash} times over {steps} steps, not {steps} x "
+              f"{attn_layers} layers x {mb} microbatches x 2 (forward, remat) = "
+              f"{steps * flash_per_step}")
+    with torch.no_grad():
+        after = sum(float(train.lm_loss(state.model, cfg, data[0]["tokens"][j::mb],
+                                        data[0]["labels"][j::mb], ce_chunk=tcfg.ce_chunk)[0])
+                    for j in range(mb)) / mb
+    check(after < losses[0], f"train: the loss of step 1's batch did not fall: {losses[0]:.4f} "
+          f"at step 1, {after:.4f} after step {steps}")
+    log(f"check train: losses {', '.join(f'{x:.4f}' for x in losses)} all finite; step 1's batch "
+        f"{losses[0]:.4f} -> {after:.4f} after {steps} steps; flash launches {flash} = {steps} "
+        f"steps x {attn_layers} layers x {mb} microbatches x 2 (forward, remat recompute) ok")
+    res = {"arch": cfg.name, "params": n_params, "plan": plan, "losses": losses,
+           "loss_after_on_batch_1": after, "step1_vs_plain": {
+               "loss": [loss_k, loss_p], "grad_norm": [norm_k, norm_p],
+               "param_rms_lr": rms, "param_max_lr": worst},
+           }
+    if cuda:
+        med = statistics.median(step_s[1:])
+        model_f, exec_f, formula = train_flops_per_token(cfg, tcfg.seq_len)
+        _, fp32_rate, tf32_rate = peak_rates(card)
+        res.update(step_s=step_s, step_s_median=med, tokens_per_s=tokens_per_step / med,
+                   model_flops_per_token=model_f, executed_flops_per_token=exec_f,
+                   mfu_fp32=model_f * tokens_per_step / med / fp32_rate,
+                   mfu_tf32=model_f * tokens_per_step / med / tf32_rate,
+                   executed_tflops=exec_f * tokens_per_step / med / 1e12,
+                   peak_gb=peak_gb(torch, dev))
+        log(f"time train {cfg.name}: step {med:.3f} s (median of steps 2-{steps}; step 1 "
+            f"{step_s[0]:.3f} s), {res['tokens_per_s']:,.0f} tokens/s; {card}")
+        log(f"time train FLOPs: {formula}")
+        log(f"time train: {model_f / 1e9:.3f} GFLOP a token (model), {exec_f / 1e9:.3f} executed; "
+            f"{res['executed_tflops']:.1f} TFLOP/s executed; MFU {100 * res['mfu_fp32']:.1f}% of "
+            f"the fp32 peak {fp32_rate / 1e12:.0f} TFLOP/s ({100 * res['mfu_tf32']:.2f}% of the "
+            f"TF32 peak {tf32_rate / 1e12:.0f}); peak memory {res['peak_gb']:.2f} GB; {card}")
+        prof = profile_train_step(torch, fa.ops, lambda: step(state, data[0]))
+        res["profile_step"] = prof
+        kinds = prof["by_kind_ms"]
+        busy = prof["device_busy_ms"]
+        log(f"profile train step: {prof['wall_ms']:.1f} ms, device busy {busy:.1f} ms, idle "
+            f"share {prof['idle_share']:.3f}; flash forward {kinds['flash_forward']:.1f} ms "
+            f"({100 * kinds['flash_forward'] / busy:.1f}%), plain attention backward "
+            f"{prof['attention_backward_ms']:.1f} ms ({100 * prof['attention_backward_ms'] / busy:.1f}%"
+            f", CUDA events around each backward), GEMMs {kinds['gemm']:.1f} ms "
+            f"({100 * kinds['gemm'] / busy:.1f}%, the backward's included), copies "
+            f"{kinds['memcpy']:.1f} ms, other kernels {kinds['other']:.1f} ms; {card}")
+        for kname, ms in prof["top"]:
+            log(f"profile train step:   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  {kname}")
+
+    # 20d. the checkpoint in the reference's layout, restored bit for bit
+    path = REPO / "build" / "lm_train_checkpoint.npz"
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    save_lm(str(path), cfg, state.model, metadata={"arch": cfg.name, "steps": steps})
+    save_s = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    fresh = CausalLM(cfg, device=dev)
+    t0 = time.perf_counter()
+    meta = load_lm(str(path), cfg, fresh)
+    sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    path.unlink()
+    want = state.model.state_dict()
+    check(meta == {"arch": cfg.name, "steps": steps}, f"checkpoint metadata {meta}")
+    for k, v in fresh.state_dict().items():
+        check(v.dtype == want[k].dtype and bool(torch.equal(v, want[k])),
+              f"checkpoint: {k} did not round-trip bit for bit")
+    res["checkpoint"] = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s}
+    log(f"check train checkpoint: {nbytes / 1e9:.3f} GB in the reference's layout saved in "
+        f"{save_s:.2f}s, restored into a fresh model in {restore_s:.2f}s, every parameter "
+        f"bit-equal ok; {card}")
+    # every launch of 20a: the steps, the evaluation, the profiled step
+    res["launches"] = {"flash_attention": fa.LAUNCHES["flash_attention"] - start,
+                       "ssd_chunks": 0}
+    del state, fresh, want, data
+    return res
+
+
+def train_cards(torch, np, fa, ks, dev, args, card):
+    """Phase 20b: reduced cards trained on the card and on the CPU from the
+    same weights and batches."""
+    from repro_torch import train
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.launch.train import batches, to_device
+
+    out, launches = {}, {"flash_attention": 0, "ssd_chunks": 0}
+    tcfg = TrainConfig(**TRAIN_CARD_PLAN)
+    for arch in TRAIN_CARDS:
+        cfg = reduced(get_config(arch)).replace(dtype="float32")
+        cpu = train.init_train_state(torch.Generator().manual_seed(args.seed), cfg, device="cpu")
+        on = train_state_copy(torch, train, cpu, dev)
+        step = train.make_train_step(cfg, tcfg)
+        attn, ssm = layer_counts(cfg)
+        attn += cfg.encoder_layers + (attn if cfg.encoder_layers else 0)   # encoder, cross
+        res = {"losses": [], "cpu_losses": []}
+        for i, b in enumerate(batches(cfg, batch=tcfg.global_batch, seq_len=tcfg.seq_len,
+                                      steps=TRAIN_CARD_STEPS, seed=args.seed)):
+            before = {k: fa.LAUNCHES[k] if k in fa.LAUNCHES else ks.LAUNCHES[k]
+                      for k in launches}
+            on, m = step(on, to_device(b, cfg, dev))
+            cpu, mc = step(cpu, to_device(b, cfg, torch.device("cpu")))
+            got = {"flash_attention": fa.LAUNCHES["flash_attention"] - before["flash_attention"],
+                   "ssd_chunks": ks.LAUNCHES["ssd_chunks"] - before["ssd_chunks"]}
+            for k in launches:
+                launches[k] += got[k]
+            if dev.type == "cuda":
+                want = {"flash_attention": 2 * tcfg.microbatches * attn,
+                        "ssd_chunks": 2 * tcfg.microbatches * ssm}
+                check(got == want, f"train {arch}: launches {got} in step {i + 1}, not {want}")
+            loss, ref = float(m["loss"]), float(mc["loss"])
+            check(np.isfinite(loss) and abs(loss - ref) <= TRAIN_CARD_LOSS_RTOL * abs(ref),
+                  f"train {arch} step {i + 1}: loss {loss} on {dev}, {ref} on the CPU")
+            res["losses"].append(loss)
+            res["cpu_losses"].append(ref)
+            if i == 0:
+                lr = float(m["lr"])
+                rms, worst = update_diff_lr(
+                    torch, {k: v.cpu() for k, v in on.model.state_dict().items()},
+                    cpu.model.state_dict(), lr)
+                check(rms <= TRAIN_RMS_LR and worst <= TRAIN_MAX_LR,
+                      f"train {arch}: parameters after step 1 differ from the CPU's by rms "
+                      f"{rms:.3g} lr, max {worst:.3g} lr")
+                res["param_rms_lr"], res["param_max_lr"] = rms, worst
+        out[arch] = res
+        log(f"check train {arch} (reduced) on {dev} vs CPU: losses "
+            + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in zip(res["losses"], res["cpu_losses"]))
+            + f" (rtol {TRAIN_CARD_LOSS_RTOL}); parameters after step 1 rms "
+            f"{res['param_rms_lr']:.3g} lr, max {res['param_max_lr']:.3g} lr; flash {2 * attn} and "
+            f"SSD {2 * ssm} launches a microbatch ok")
+        del cpu, on
+    out["launches"] = launches
+    return out
+
+
+def run_example(name, argv):
+    """``main(argv)`` of ``examples/<name>.py``, imported from the checkout."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(argv)
+
+
+def train_examples(torch, np, fa, ks, dev, args, card):
+    """Phase 20c: the two training examples on the device."""
+    out = {}
+    before = fa.LAUNCHES["flash_attention"]
+    t0 = time.perf_counter()
+    cut = ["--steps", "4", "--ppat-steps", "10", "--retrain-steps", "2"] if args.rehearse else []
+    fed = run_example("federated_lm_embeddings_torch", ["--device", str(dev)] + cut)
+    sync(torch, dev)
+    fed_s = time.perf_counter() - t0
+    check(all(np.isfinite([fed["loss_a"], fed["loss_b"], fed["before"], fed["after"]]))
+          and np.isfinite(fed["epsilon"]), f"federated LM example: {fed}")
+    out["federated_lm"] = {k: fed[k] for k in ("loss_a", "loss_b", "epsilon", "before", "after",
+                                               "kept")}
+    out["federated_lm"]["seconds"] = fed_s
+    log(f"check example federated_lm_embeddings_torch: losses A {fed['loss_a']:.4f}, B "
+        f"{fed['loss_b']:.4f}, epsilon {fed['epsilon']:.3f}, host eval {fed['before']:.4f} -> "
+        f"{fed['after']:.4f}, {'kept' if fed['kept'] else 'backtracked'}, in {fed_s:.1f}s ok")
+    steps = "4" if args.rehearse else "20"
+    t0 = time.perf_counter()
+    lm = run_example("train_lm_torch", ["--device", str(dev), "--steps", steps, "--log-every",
+                                        "2" if args.rehearse else "10"]
+                     + (["--batch", "2", "--seq-len", "32"] if args.rehearse else []))
+    sync(torch, dev)
+    check(np.isfinite(lm["last"]), f"train_lm example: loss {lm['last']}")
+    out["train_lm"] = dict(lm, seconds=time.perf_counter() - t0)
+    log(f"time example train_lm_torch --steps {steps}: tokens/s "
+        + ", ".join(f"{r:,.0f}" for r in lm["tokens_per_s"])
+        + f" (per {'2' if args.rehearse else '10'} steps, the first with the warm-up); loss "
+        f"{lm['first']:.4f} -> {lm['last']:.4f}; {card}")
+    out["launches"] = {"flash_attention": fa.LAUNCHES["flash_attention"] - before,
+                       "ssd_chunks": 0}
+    return out
+
+
+def lm_training(torch, np, fa, ks, dev, args, card):
+    """Phase 20: LM training (20a and 20d, then 20b, then 20c); every model
+    is freed before it returns."""
+    fa.reset_launches()
+    ks.reset_launches()
+    t0 = time.perf_counter()
+    out = {"qwen3": lm_train(torch, np, fa, ks, dev, args, card)}
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["cards"] = train_cards(torch, np, fa, ks, dev, args, card)
+    out["examples"] = train_examples(torch, np, fa, ks, dev, args, card)
+    out["launches"] = {k: out["qwen3"]["launches"][k] + out["cards"]["launches"][k]
+                       + out["examples"]["launches"][k] for k in ("flash_attention", "ssd_chunks")}
+    if dev.type == "cuda":
+        check(out["launches"]["flash_attention"] == fa.LAUNCHES["flash_attention"]
+              and out["launches"]["ssd_chunks"] == ks.LAUNCHES["ssd_chunks"],
+              f"phase 20's launches {out['launches']} do not add up to the counters "
+              f"{fa.LAUNCHES}, {ks.LAUNCHES}")
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"lm training: phase 20 took {out['phase_s']:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3745,6 +4206,7 @@ def main(argv=None) -> int:
         engines_example(torch, np, dev, args, scale=4000)
         parties_path(torch, np, ck, al, dev, args, (1_000, 20, (4_000, 50, 12_000), 30))
         lm_cards(torch, np, fa, ks, dev, args, "cpu")
+        lm_training(torch, np, fa, ks, dev, args, "cpu")
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -3859,14 +4321,17 @@ def main(argv=None) -> int:
     log(f"lm cards: phase 19 took {cards['phase_s']:.1f}s")
     torch.cuda.empty_cache()
 
+    training = lm_training(torch, np, fa, ks, dev, args, card)
+
     # each kernel's launches over the main paths that run it: serving (phase
     # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12),
     # the federation with its attached tier (phase 15), the storm (phase 16)
     # the tick engines at full width and over the eleven owners (phase 17,
-    # replays counted), the two parties' retrieval (phase 18) and the
-    # remaining LM cards (phase 19)
+    # replays counted), the two parties' retrieval (phase 18), the
+    # remaining LM cards (phase 19) and LM training (phase 20)
     lm_launches = {name: lm["qwen3-0.6b"]["launches"].get(name, 0)
                    + lm["mamba2-2.7b"]["launches"].get(name, 0) + cards["launches"][name]
+                   + training["launches"][name]
                    for name in ("flash_attention", "ssd_chunks")}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
                 + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
@@ -3894,6 +4359,7 @@ def main(argv=None) -> int:
               "serve": res,
               "train": train, "handshake": hs, "lm": lm, "federation": fed, "storm": storm,
               "tick_engines": engines, "parties": two_parties, "lm_cards": cards,
+              "lm_training": training,
               "timings": times,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

@@ -1,7 +1,15 @@
-"""npz checkpointing of nested dicts of tensors (no external deps), in the
-JAX package's layout: leaves are path-keyed (``trainers/A/params/ent``) and
-a ``__metadata__`` entry holds a JSON sidecar, so a checkpoint of tables
-written by either package loads in the other.
+"""npz checkpointing of nested dicts and lists of tensors (no external deps),
+in the JAX package's layout: leaves are path-keyed (``trainers/A/params/ent``,
+a list's items by index: ``layers/0/attn/wq/w``, as the reference's
+``_key_str``) and a ``__metadata__`` entry holds a JSON sidecar, so a
+checkpoint written by either package loads in the other. bf16 leaves are
+stored as the reference stores them: numpy has no bfloat16, so ``np.savez``
+writes their two bytes as ``|V2``; loading reads those bytes back as bf16.
+
+An LM's parameters go through ``models.lm_params_to_numpy`` (the
+reference's tree: ``embed/table``, ``layers/<p>/…`` stacks per period
+position) and come back with ``lm_params_from_numpy``; ``save_lm`` and
+``load_lm`` do both.
 
 ``save_scheduler`` / ``restore_scheduler`` give crash-consistent
 federation resume: everything the scheduler's decisions depend on — queues,
@@ -35,17 +43,41 @@ import torch
 
 
 def _numpy(v) -> np.ndarray:
-    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    if not torch.is_tensor(v):
+        return np.asarray(v)
+    v = v.detach().cpu()
+    if v.dtype == torch.bfloat16:  # the bytes, as np.savez writes a JAX bf16 leaf
+        return v.contiguous().view(torch.int16).numpy().view("V2")
+    return v.numpy()
+
+
+def _items(tree: Any):
+    """(key, child) of a dict or, by index, a list or tuple; None for a leaf."""
+    if isinstance(tree, dict):
+        return tree.items()
+    if isinstance(tree, (list, tuple)):
+        return enumerate(tree)
+    return None
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """``{"a/b": leaf}`` for nested dicts of leaves."""
-    if not isinstance(tree, dict):
+    """``{"a/0/b": leaf}`` for nested dicts and lists of leaves."""
+    items = _items(tree)
+    if items is None:
         return {prefix: tree}
     out: Dict[str, Any] = {}
-    for k, v in tree.items():
+    for k, v in items:
         out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
     return out
+
+
+def _rebuild(like: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
+    """``like``'s structure (dicts and lists) with the leaf at each path."""
+    items = _items(like)
+    if items is None:
+        return leaves[prefix]
+    out = {k: _rebuild(v, leaves, f"{prefix}/{k}" if prefix else str(k)) for k, v in items}
+    return out if isinstance(like, dict) else type(like)(out[i] for i in range(len(like)))
 
 
 def _unflatten(flat: Dict[str, Any]) -> Dict:
@@ -77,11 +109,26 @@ def save_checkpoint(path: str, tree: Any, *, metadata: Optional[Dict] = None) ->
     os.replace(tmp, path)
 
 
+def _is_bf16(dtype) -> bool:
+    return dtype == torch.bfloat16 or getattr(dtype, "name", None) == "bfloat16"
+
+
+def _leaf(arr: np.ndarray, ref) -> torch.Tensor:
+    """A stored array as a tensor of ``ref``'s dtype; ``|V2`` leaves (and
+    any leaf loaded into bf16) go through a bf16 tensor."""
+    if arr.dtype.kind != "V" and not _is_bf16(ref.dtype):
+        return torch.from_numpy(np.array(arr, dtype=_np_dtype(ref), order="C"))
+    t = (torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+         if arr.dtype.kind == "V" else torch.from_numpy(np.array(arr, dtype=np.float32)))
+    return t.to(torch.bfloat16 if _is_bf16(ref.dtype)
+                else torch.from_numpy(np.empty(0, _np_dtype(ref))).dtype)
+
+
 def load_checkpoint(path: str, like: Any, *, device=None) -> Tuple[Any, Dict]:
-    """Restore into the structure of ``like`` (nested dicts of tensors, or
-    of anything with ``shape`` and ``dtype``), every leaf checked against
-    its shape and cast to its dtype. Leaves come back as tensors on
-    ``device`` (the CPU by default)."""
+    """Restore into the structure of ``like`` (nested dicts and lists of
+    tensors, or of anything with ``shape`` and ``dtype``), every leaf
+    checked against its shape and cast to its dtype. Leaves come back as
+    tensors on ``device`` (the CPU by default)."""
     leaves = {}
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(str(z["__metadata__"]))
@@ -91,10 +138,29 @@ def load_checkpoint(path: str, like: Any, *, device=None) -> Tuple[Any, Dict]:
             arr = z[key]
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(ref.shape)}")
-            leaves[key] = torch.from_numpy(np.array(arr, dtype=_np_dtype(ref), order="C"))
+            leaves[key] = _leaf(arr, ref)
             if device is not None:
                 leaves[key] = leaves[key].to(device)
-    return _unflatten(leaves), meta
+    return _rebuild(like, leaves), meta
+
+
+def save_lm(path: str, cfg, model, *, metadata: Optional[Dict] = None) -> None:
+    """``model``'s parameters in the reference's LM layout (the tree of
+    ``models.lm_tree``), as ``repro.launch.train`` saves ``state.params``."""
+    from repro_torch.models.model import lm_tree
+
+    save_checkpoint(path, lm_tree(cfg, model, "tensor"), metadata=metadata)
+
+
+def load_lm(path: str, cfg, model) -> Dict:
+    """Load an LM checkpoint in the reference's layout (written by either
+    package) into ``model`` → its metadata. Leaves are read in the model's
+    dtypes and land on its device."""
+    from repro_torch.models.model import lm_params_from_numpy, lm_tree
+
+    tree, meta = load_checkpoint(path, lm_tree(cfg, model, "spec"))
+    model.load_state_dict(lm_params_from_numpy(cfg, tree))
+    return meta
 
 
 # ---------------------------------------------------------------------------

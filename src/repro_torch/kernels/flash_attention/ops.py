@@ -10,6 +10,13 @@ For a CUDA tensor it launches the kernel or raises; for a CPU tensor it takes
 the plain version (``ref.attention_ref``). ``LAUNCHES`` counts kernel
 launches, so a run can show its main path went through the kernel.
 
+Gradients: when grad mode is on and an input requires grad, the launch runs
+inside ``_FlashAttention`` (a ``torch.autograd.Function``) whose backward
+recomputes the plain version under ``torch.enable_grad()`` and returns its
+``torch.autograd.grad``: the gradient the JAX package takes through its jnp
+attention, which has no backward kernel either. Without grad (serving,
+``torch.no_grad()``) the kernel is launched directly, as before.
+
 The JAX package's LM path never reaches its Pallas kernel (its
 ``models/attention.py`` computes dense jnp softmax attention, or an XLA scan
 above 8,192 tokens); the Pallas kernel computes the same function, and the
@@ -109,10 +116,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     """q: (B, H, S, Dh); k/v: (B, KV, T, Dh), H % KV == 0 → (B, H, S, Dh) in
     q's dtype (fp32 math). Causal masks ``k > q``, a window ``q − k ≥
     window``; any S and T (no block divisibility). On the card Dh is one of
-    ``HEAD_DIMS`` and the dtype float32 or bfloat16."""
+    ``HEAD_DIMS`` and the dtype float32 or bfloat16; under grad the output
+    carries the plain version's gradient."""
     dev = _check_inputs(q, k, v)
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _launch(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = attention_ref(q, k, v, causal=ctx.causal, window=ctx.window)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
+        return dq, dk, dv, None, None
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs."""
+    dev = q.device
     b, h, s, dh = q.shape
     kv, t = k.shape[1], k.shape[2]
     q, k, v = (x if _aligned(x) else x.clone(memory_format=torch.contiguous_format)

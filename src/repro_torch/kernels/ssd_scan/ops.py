@@ -17,7 +17,11 @@ chunks (the JAX wrapper's ``lax.scan`` outside the kernel) and
 
 For CUDA tensors ``ssd_chunks`` launches the kernel or raises; for CPU
 tensors it takes ``ssd_chunks_plain``, the same arithmetic in plain
-PyTorch. A block of the kernel serves one chunk of ``head_group`` heads and
+PyTorch. Under grad (an input requires grad and grad mode is on) the launch
+runs inside ``_SSDChunks``, a ``torch.autograd.Function`` whose backward
+recomputes ``ssd_chunks_plain`` and returns its ``torch.autograd.grad``:
+the gradient the JAX package takes through its jnp ``ssd``, which has no
+backward kernel either. Without grad the kernel is launched directly. A block of the kernel serves one chunk of ``head_group`` heads and
 forms C·Bᵀ once for them. Both take the in-chunk cumulative sum of
 ``dt · a`` in one fixed sequential order: at the full card ``cum`` reaches
 about −10³ within a chunk, where a different summation order moves
@@ -207,6 +211,30 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Ten
     dev = _check_inputs(x, dt, a, bm, cm)
     if dev.type == "cpu":
         return ssd_chunks_plain(x, dt, a, bm, cm)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, bm, cm)):
+        return _SSDChunks.apply(x, dt, a, bm, cm)
+    return _launch(x, dt, a, bm, cm)
+
+
+class _SSDChunks(torch.autograd.Function):
+    """The kernel forward, the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm):
+        ctx.save_for_backward(x, dt, a, bm, cm)
+        return _launch(x, dt, a, bm, cm)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ssd_chunks_plain(*ins)
+        return torch.autograd.grad(outs, ins, grads)
+
+
+def _launch(x, dt, a, bm, cm):
+    """One launch of the kernel on checked CUDA inputs."""
+    dev = x.device
     b, h, nc, q, p = x.shape
     n = bm.shape[-1]
     # outputs in the (B, S, H, ·) order of the activations, seen as the Pallas layout

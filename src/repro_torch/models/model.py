@@ -17,14 +17,26 @@ embeddings; a VLM card (internvl) prepends ``patch_proj(patches)``
 ``[0, num_patches + S)``. MoE layers route jointly over a call's tokens,
 unless ``decode_step(moe_groups="row")`` asks for one group per row (the
 serving engine's slots).
+
+Training (``repro_torch.train``) differentiates ``forward``: with
+``cfg.remat`` and grad mode on, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), so its activations are
+recomputed in the backward pass, as the reference's ``jax.checkpoint`` of
+its scan body (one repeat of the period) does; ``remat_policy="dots"``
+keeps the outputs of the layer's matrix products (``aten.mm``/``addmm``:
+products without batch dimensions, as ``dots_with_no_batch_dims_saveable``)
+and recomputes the rest. Without grad (serving) layers run plainly.
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.blocks import DecoderLayer, LayerKind, init_layer_cache, layout
@@ -32,6 +44,29 @@ from repro_torch.models.layers import (
     Embedding, Linear, dtype_of, make_norm, normal_, sinusoidal_positions, unembed)
 
 ENCODER_KIND = LayerKind("attn", "dense", cross=False)
+
+#: the matrix products that ``remat_policy="dots"`` saves: those without a
+#: batch dimension (the reference's ``dots_with_no_batch_dims_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def run_layer(cfg, layer: nn.Module, h: torch.Tensor, **kw):
+    """``layer(h, **kw)`` → (h, aux), under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` asks for it and grad mode is on."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer(h, **kw)
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} (full|dots)")
+    extra = {}
+    if cfg.remat_policy == "dots":
+        extra["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                _dots_policy)
+    return ckpt.checkpoint(functools.partial(layer, **kw), h, use_reentrant=False, **extra)
 
 
 class Encoder(nn.Module):
@@ -51,7 +86,7 @@ class Encoder(nn.Module):
         h = h + sinusoidal_positions(frames.shape[1], self.cfg.d_model,
                                      device=h.device).to(h.dtype)[None]
         for layer in self.layers:
-            h, _ = layer(h, causal=False)
+            h, _ = run_layer(self.cfg, layer, h, causal=False)
         return self.final_norm(h)
 
 
@@ -109,15 +144,20 @@ class CausalLM(nn.Module):
     # ------------------------------------------------------------ passes
     def forward(self, tokens: torch.Tensor, *, frames: Optional[torch.Tensor] = None,
                 patches: Optional[torch.Tensor] = None,
-                positions: Optional[torch.Tensor] = None, return_aux: bool = False):
+                positions: Optional[torch.Tensor] = None, return_aux: bool = False,
+                return_hidden: bool = False):
         """tokens (B, S) → logits (B, S', V_pad) fp32 (S' = S plus the
-        patches), and the layers' summed MoE aux loss with ``return_aux``."""
+        patches), and the layers' summed MoE aux loss with ``return_aux``;
+        with ``return_hidden``, (the final-normed hidden states (B, S', d),
+        aux) instead, as the reference's ``forward(return_hidden=True)``."""
         encoder_out = self._encode(frames)
         h = self._embed(tokens, patches, positions)
         aux = h.new_zeros((), dtype=torch.float32)
         for layer in self.layers:
-            h, a = layer(h, positions=positions, encoder_out=encoder_out)
+            h, a = run_layer(self.cfg, layer, h, positions=positions, encoder_out=encoder_out)
             aux = aux + a
+        if return_hidden:
+            return self.final_norm(h), aux
         logits = self._logits(h)
         return (logits, aux) if return_aux else logits
 
@@ -194,12 +234,18 @@ _TRANSPOSED = {"w": "weight", "in_proj": "in_proj.weight", "out_proj": "out_proj
 _RENAMED = {"b": "bias", "table": "weight"}
 
 
+def _f32(v) -> np.ndarray:
+    if torch.is_tensor(v):
+        return v.detach().float().cpu().numpy()
+    return np.asarray(v, dtype=np.float32)
+
+
 def _flatten(tree: dict, prefix: str, pick, out: Dict[str, torch.Tensor]) -> None:
     for key, val in tree.items():
         if isinstance(val, dict):
             _flatten(val, f"{prefix}{key}.", pick, out)
             continue
-        arr = np.asarray(pick(val), dtype=np.float32)
+        arr = _f32(pick(val))
         if key in _TRANSPOSED:
             out[prefix + _TRANSPOSED[key]] = torch.from_numpy(np.ascontiguousarray(arr.T))
         else:
@@ -219,11 +265,105 @@ def lm_params_from_numpy(cfg, tree: dict) -> Dict[str, torch.Tensor]:
              lambda v: v, out)
     for i in range(cfg.num_layers):
         r, p = divmod(i, period)
-        _flatten(tree["layers"][p], f"layers.{i}.", lambda v, r=r: np.asarray(v)[r], out)
+        _flatten(tree["layers"][p], f"layers.{i}.", lambda v, r=r: v[r], out)
     if "encoder" in tree:
         enc = tree["encoder"]
         _flatten({k: v for k, v in enc.items() if k != "layers"}, "encoder.", lambda v: v, out)
         for i in range(cfg.encoder_layers):
-            _flatten(enc["layers"][0], f"encoder.layers.{i}.",
-                     lambda v, i=i: np.asarray(v)[i], out)
+            _flatten(enc["layers"][0], f"encoder.layers.{i}.", lambda v, i=i: v[i], out)
     return out
+
+
+def _leaf_path(model: nn.Module, key: str):
+    """A ``CausalLM`` state-dict key without its layer prefix (``attn.wq.weight``,
+    under the module path ``module``) → (the reference's path below the
+    layer, transposed?): a linear's weight is ``w`` (d_in, d_out), a Mamba2
+    projection's the leaf ``in_proj``/``out_proj``, an embedding's
+    ``table``, a linear's bias ``b``; the rest keep their names."""
+    *mods, leaf = key.split(".")
+    owner = model.get_submodule(".".join(mods)) if mods else model
+    if isinstance(owner, Linear) and leaf == "weight":
+        if mods and mods[-1] in ("in_proj", "out_proj"):
+            return tuple(mods), True
+        return (*mods, "w"), True
+    if isinstance(owner, Linear) and leaf == "bias":
+        return (*mods, "b"), False
+    if isinstance(owner, Embedding):
+        return (*mods, "table"), False
+    return (*mods, leaf), False
+
+
+def _set(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU copy in the tensor's dtype; bf16 as ``ml_dtypes``' bfloat16
+    when numpy knows it (JAX installs it), else as float32."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        from ml_dtypes import bfloat16
+    except ImportError:
+        return t.float().numpy()
+    return t.contiguous().view(torch.int16).numpy().view(bfloat16)
+
+
+@dataclass(frozen=True)
+class LeafSpec:
+    """A leaf's shape and dtype (what ``checkpoint.load_checkpoint`` reads
+    from its ``like``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+#: leaf and stack functions of ``lm_tree``'s three forms
+_FORMS = {
+    "numpy": (lambda t: np.ascontiguousarray(_to_numpy(t)), np.stack),
+    "tensor": (lambda t: t.detach().cpu().contiguous(), torch.stack),
+    "spec": (lambda t: LeafSpec(tuple(t.shape), t.dtype),
+             lambda xs: LeafSpec((len(xs),) + xs[0].shape, xs[0].dtype)),
+}
+
+
+def lm_tree(cfg, model: "CausalLM", form: str = "numpy") -> dict:
+    """``model``'s parameters as the JAX package's ``init_params`` tree: each
+    layer stack ``(repeats, …)`` per period position, ``(d_in, d_out)``
+    matrices, ``table``/``w``/``b`` names. Leaves are numpy arrays in the
+    parameters' dtype (``form="numpy"``), CPU tensors (``"tensor"``) or
+    ``LeafSpec``s (``"spec"``)."""
+    leaf, stack = _FORMS[form]
+    _, period, _ = layout(cfg)
+    tree: dict = {}
+    stacks: Dict[tuple, list] = {}
+    for key, p in model.state_dict().items():
+        parts = key.split(".")
+        head = 1 if parts[0] == "layers" else 2 if parts[:2] == ["encoder", "layers"] else 0
+        if not head:
+            path, tr = _leaf_path(model, key)
+            _set(tree, path, leaf(p.T if tr else p))
+            continue
+        i = int(parts[head])
+        sub = model.get_submodule(".".join(parts[:head + 1]))
+        path, tr = _leaf_path(sub, ".".join(parts[head + 1:]))
+        pos = i % period if head == 1 else 0
+        stacks.setdefault((tuple(parts[:head]), pos, path), []).append(leaf(p.T if tr else p))
+    for (root, pos, path), leaves in stacks.items():
+        node = tree
+        for k in root[:-1]:
+            node = node.setdefault(k, {})
+        positions = node.setdefault(root[-1], [])
+        while len(positions) <= pos:
+            positions.append({})
+        _set(positions[pos], path, stack(leaves))
+    return tree
+
+
+def lm_params_to_numpy(cfg, model: "CausalLM") -> dict:
+    """The inverse of ``lm_params_from_numpy``: ``model``'s parameters as the
+    JAX package's tree with numpy leaves in the parameters' dtype, which the
+    reference's ``forward`` and ``save_checkpoint`` take as they are."""
+    return lm_tree(cfg, model, "numpy")

@@ -1418,3 +1418,163 @@ def test_sharded_step_on_the_card_world2_equals_world1(cuda_dev, tmp_path):
         np.testing.assert_allclose(two[0]["losses"], one["losses"].cpu().numpy(),
                                    rtol=0, atol=1e-6)
         assert np.isfinite(two[0]["losses"]).all()
+
+
+# ------------------------------------------------------- LM training
+FLASH_GRAD_CASES = [
+    # b, h, kv, s, dh, causal, window
+    (2, 16, 8, 256, 128, True, 0),    # qwen3-0.6b's heads
+    (1, 8, 2, 300, 64, True, 64),     # GQA 4:1, a window, ragged S
+    (2, 4, 4, 200, 64, False, 0),     # non-causal (whisper's encoder)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,h,kv,s,dh,causal,window", FLASH_GRAD_CASES)
+def test_flash_attention_gradient_equals_the_plain_path(cuda_dev, b, h, kv, s, dh, causal,
+                                                        window, dtype):
+    """Under grad the kernel's output carries a ``grad_fn`` (the kernel
+    launches once, the backward recomputes the plain version), and the
+    gradients of a loss that depends on the output nonlinearly equal the
+    plain path's ``torch.autograd.grad``: within 1e-4 of each gradient's
+    largest magnitude at fp32 (the forward outputs differ by ~1e-6, which
+    the square carries into the gradient); at bf16 within one bf16 ulp of
+    it (rtol 2**-7, atol 2**-7 of the largest)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda_dev).manual_seed(s + dh)
+    q, k, v = (torch.randn(b, s, n, dh, device=cuda_dev, generator=g).to(dtype)
+               .transpose(1, 2).requires_grad_() for n in (h, kv, kv))
+    w = torch.randn(b, h, s, dh, device=cuda_dev, generator=g)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.grad_fn is not None and fa.LAUNCHES["flash_attention"] == before + 1
+    got = torch.autograd.grad((out.float().square() * w).sum(), (q, k, v))
+    assert fa.LAUNCHES["flash_attention"] == before + 1     # the backward is plain
+    ref = fa.attention_ref(q, k, v, causal=causal, window=window)
+    want = torch.autograd.grad((ref.float().square() * w).sum(), (q, k, v))
+    for a, e in zip(got, want):
+        assert a.dtype == dtype and a.shape == e.shape
+        scale = float(e.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        torch.testing.assert_close(a.float(), e.float(), atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_kernels_without_grad_launch_as_before(cuda_dev):
+    """Under ``torch.no_grad()``, or with inputs that need no grad, both LM
+    kernels launch once per call, give the grad-mode output bit for bit and
+    build no graph."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ks
+
+    g = torch.Generator(device=cuda_dev).manual_seed(5)
+    q, k, v = (torch.randn(1, 128, n, 64, device=cuda_dev, generator=g).transpose(1, 2)
+               for n in (8, 2, 2))
+    with_grad = fa.flash_attention(*(t.detach().requires_grad_() for t in (q, k, v)))
+    before = fa.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        a = fa.flash_attention(*(t.detach().requires_grad_() for t in (q, k, v)))
+    b = fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES["flash_attention"] == before + 2
+    assert a.grad_fn is None and b.grad_fn is None and with_grad.grad_fn is not None
+    assert torch.equal(a, with_grad.detach()) and torch.equal(b, a)
+    x = torch.randn(1, 64, 4, 16, device=cuda_dev, generator=g)
+    dt = torch.rand(1, 64, 4, device=cuda_dev, generator=g) * 0.1
+    a_ = -torch.arange(1, 5, device=cuda_dev, dtype=torch.float32)
+    bm, cm = (torch.randn(1, 64, 1, 8, device=cuda_dev, generator=g) for _ in range(2))
+    grad_y, _ = ks.ssd_chunk_kernel_apply(x.requires_grad_(), dt, a_, bm, cm, chunk=32)
+    before = ks.LAUNCHES["ssd_chunks"]
+    with torch.no_grad():
+        y, _ = ks.ssd_chunk_kernel_apply(x, dt, a_, bm, cm, chunk=32)
+    assert ks.LAUNCHES["ssd_chunks"] == before + 1 and y.grad_fn is None
+    assert grad_y.grad_fn is not None and torch.equal(y, grad_y.detach())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True], ids=["no-state", "state"])
+def test_ssd_gradient_equals_the_plain_path(cuda_dev, monkeypatch, with_state):
+    """The whole SSD through the chunk kernel under grad, against the same
+    SSD with the plain chunk version: the gradients of x, dt, A, B, C (and
+    the initial state) of a loss over y and the final state agree within
+    1e-4 of each gradient's largest magnitude."""
+    from repro_torch.kernels.ssd_scan import ops as sops
+
+    g = torch.Generator(device=cuda_dev).manual_seed(11)
+    b, s, h, p, n, chunk = 2, 128, 6, 32, 16, 32
+    x = torch.randn(b, s, h, p, device=cuda_dev, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=cuda_dev, generator=g) - 3)
+    a = -torch.arange(1, h + 1, device=cuda_dev, dtype=torch.float32)
+    bm, cm = (torch.randn(b, s, 1, n, device=cuda_dev, generator=g) for _ in range(2))
+    state = torch.randn(b, h, p, n, device=cuda_dev, generator=g) if with_state else None
+    w1 = torch.randn(b, s, h, p, device=cuda_dev, generator=g)
+    w2 = torch.randn(b, h, p, n, device=cuda_dev, generator=g)
+
+    def run():
+        ins = [t.detach().clone().requires_grad_() for t in (x, dt, a, bm, cm)]
+        st = state.detach().clone().requires_grad_() if with_state else None
+        y, fin = sops.ssd_chunk_kernel_apply(*ins, chunk=chunk, state=st)
+        grads = torch.autograd.grad((y * w1).sum() + (fin * w2).sum(),
+                                    ins + ([st] if with_state else []))
+        return y, grads
+
+    before = sops.LAUNCHES["ssd_chunks"]
+    y, got = run()
+    assert y.grad_fn is not None and sops.LAUNCHES["ssd_chunks"] == before + 1
+    monkeypatch.setattr(sops, "ssd_chunks", sops.ssd_chunks_plain)
+    _, want = run()
+    assert sops.LAUNCHES["ssd_chunks"] == before + 1
+    for name, a_, e in zip(("x", "dt", "A", "B", "C", "state"), got, want):
+        scale = float(e.abs().max())
+        torch.testing.assert_close(a_, e, atol=1e-4 * scale, rtol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,mb", [("qwen3-0.6b", 2), ("mamba2-2.7b", 1),
+                                     ("whisper-medium", 1), ("jamba-1.5-large-398b", 2)])
+def test_train_step_on_the_card_equals_the_cpu(cuda_dev, arch, mb):
+    """Two steps of ``make_train_step`` of the reduced card (remat on) on the
+    card (kernels forward, plain backward) and on the CPU (plain), same
+    weights and batches: metrics within rtol 1e-4, each parameter leaf's
+    displacement within 5e-3 of the CPU's (Frobenius; Adam's first step
+    is ill-conditioned where |g| is near eps, see tests/test_torch_train.py),
+    and the kernels launched twice per attention (SSM) layer and microbatch
+    (the forward and remat's recompute), never in the backward."""
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ks
+    from repro_torch.launch.train import batches, to_device
+    from repro_torch.models.blocks import layer_kinds
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    assert cfg.remat
+    tcfg = TrainConfig(global_batch=4, seq_len=64, microbatches=mb, ce_chunk=32,
+                       learning_rate=3e-3, warmup_steps=1, total_steps=2)
+    cpu = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = init_train_state(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card.model.to(cuda_dev)
+    card = card._replace(opt=card.opt._replace(
+        mu={k: t.to(cuda_dev) for k, t in card.opt.mu.items()},
+        nu={k: t.to(cuda_dev) for k, t in card.opt.nu.items()}))
+    start = {k: t.detach().clone() for k, t in cpu.model.state_dict().items()}
+    step = make_train_step(cfg, tcfg)
+    kinds = layer_kinds(cfg)
+    attn = sum(k.mixer == "attn" for k in kinds) * (2 if cfg.encoder_layers else 1) \
+        + cfg.encoder_layers
+    ssm = sum(k.mixer == "ssm" for k in kinds)
+    for b in batches(cfg, batch=4, seq_len=64, steps=2, seed=1):
+        cpu, mc = step(cpu, to_device(b, cfg, torch.device("cpu")))
+        fa.reset_launches()
+        ks.reset_launches()
+        card, md = step(card, to_device(b, cfg, cuda_dev))
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] == 2 * mb * attn
+        assert ks.LAUNCHES["ssd_chunks"] == 2 * mb * ssm
+        for k in ("nll", "aux", "z", "loss", "lr"):
+            np.testing.assert_allclose(float(md[k]), float(mc[k]), rtol=1e-4, atol=1e-7)
+    got = card.model.state_dict()
+    for k, p in cpu.model.state_dict().items():
+        dw = p - start[k]
+        assert float((got[k].cpu() - start[k] - dw).norm()) <= 5e-3 * float(dw.norm()), k

@@ -16,7 +16,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "examples" / "quickstart_torch.py",
     REPO / "examples" / "federated_11kg_torch.py",
-    REPO / "examples" / "distributed_fkge_torch.py", REPO / "examples" / "serve_engine_torch.py"]
+    REPO / "examples" / "distributed_fkge_torch.py", REPO / "examples" / "serve_engine_torch.py",
+    REPO / "examples" / "train_lm_torch.py", REPO / "examples" / "federated_lm_embeddings_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "flax", "optax")
 
 
@@ -62,7 +63,12 @@ def test_port_files_exist():
                  "src/repro_torch/core/tick_engine.py", "src/repro_torch/core/distributed.py",
                  "src/repro_torch/core/parties.py",
                  "examples/quickstart_torch.py", "examples/federated_11kg_torch.py",
-                 "examples/distributed_fkge_torch.py"):
+                 "examples/distributed_fkge_torch.py",
+                 "src/repro_torch/optim/__init__.py", "src/repro_torch/optim/adamw.py",
+                 "src/repro_torch/optim/schedule.py", "src/repro_torch/train/__init__.py",
+                 "src/repro_torch/train/loss.py", "src/repro_torch/train/step.py",
+                 "src/repro_torch/launch/train.py", "examples/train_lm_torch.py",
+                 "examples/federated_lm_embeddings_torch.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
     assert (REPO / "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu").is_file()
@@ -130,6 +136,13 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         CausalLM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen3-0.6b", "--reduced"])
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import init_train_state
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(None, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ltrain.main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "1"])
     from repro_torch.core.federation import FederationScheduler
     from repro_torch.kge.data import synthesize_universe
 
@@ -174,6 +187,7 @@ def test_kernel_build_is_lazy():
         "import repro_torch.core.ppat, repro_torch.core.aggregation\n"
         "import repro_torch.core.adversary, repro_torch.core.attacks, repro_torch.checkpoint\n"
         "import repro_torch.models, repro_torch.launch.serve\n"
+        "import repro_torch.optim, repro_torch.train, repro_torch.launch.train\n"
         "from repro_torch.kernels.flash_attention import ops as fops\n"
         "from repro_torch.kernels.ssd_scan import ops as kops\n"
         "assert all(lib._lib is None for lib in ops.LIBRARIES + sops.LIBRARIES"
