@@ -16,9 +16,11 @@ on the 11-KG example's universe, runs the paper's two-party topology
 full width, serves the MoE, encoder-decoder and VLM cards (mixtral-8x22b,
 whisper-medium, internvl2-26b at full width; jamba and kimi reduced), and
 trains qwen3-0.6b at its published width and depth through
-``repro_torch.train`` with the flash kernel in every attention forward.
+``repro_torch.train`` with the flash kernel in every attention forward,
+dry-runs two cards on a fake 256-rank mesh, and runs kimi's expert-parallel
+MoE over gloo ranks sharing the card.
 
-    python3 chip_smoke.py            # one CUDA card; about eight minutes on an H100
+    python3 chip_smoke.py            # one CUDA card; about ten minutes on an H100
 
 Phases (every failed check ends the run with a non-zero exit):
 
@@ -270,7 +272,7 @@ Phases (every failed check ends the run with a non-zero exit):
    one beside it), peak memory, and a device-only ``torch.profiler``
    window of one step (idle share; the flash forward, the GEMMs and the
    rest by kernel name; the plain attention backward between CUDA events
-   around each ``_FlashAttention.backward``). d. Its parameters saved under
+   around each flash backward, ``_backward``). d. Its parameters saved under
    ``build/`` in the reference's layout (``checkpoint.save_lm``) and
    restored into a fresh model bit for bit: save and restore s and bytes;
    the file is deleted. b. mixtral (the MoE aux), whisper (frames),
@@ -281,6 +283,23 @@ Phases (every failed check ends the run with a non-zero exit):
    ``examples/federated_lm_embeddings_torch.py`` at its defaults (losses
    and epsilon finite, the verdict) and ``examples/train_lm_torch.py
    --steps 20`` (its tokens/s).
+21. sharding. a. ``launch.dryrun.dryrun_one`` for qwen3-0.6b and
+   kimi-k2-1t-a32b x decode_32k on a fake 256-rank (16, 16) mesh (shapes
+   only, nothing allocated): status, per-rank peak and argument bytes, the
+   roofline terms. b. kimi's MoE layer at published width (d 7,168, 384
+   experts top-8, d_ff 2,048, a shared expert, route groups 4), bf16, over
+   ``EP_RANKS`` = 8 gloo ranks sharing the card (48 experts and 512 tokens
+   each: the node-limited branch): at the card's capacity factor 1.25 the
+   drops, ms a call, the share in gloo and the bytes handed to it; at
+   ``EP_NO_DROP_CF`` forward and backward of ``sum(y²)``, nothing dropped,
+   against the one-process gather path on the same routing
+   (``MoE.node_limited``): outputs, the router's and shared expert's
+   gradients (the ranks' shares summed) and every expert's gradient norm
+   and ``EP_SAMPLES`` sampled elements, within ``EP_TOL`` of the largest
+   value. c. kimi cut to one layer over ``CARD_RANKS`` = 4 such ranks with
+   the mesh set (96 experts each, the MoE's plain all-to-all branch, flash
+   at Dh 112): each rank's logits for 1 x 1,024 tokens against the
+   one-process forward on the same weights, flash launched once per rank.
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -292,7 +311,7 @@ launch lasts tens of ms, and its ``ms`` is the device time of one (as
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without CUDA, or run from a directory
 that lacks the port's sources, it exits non-zero and prints no result.
-``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15-20 at a tiny size (the
+``--rehearse`` runs phases 3, 6, 9, 12, 13 and 15-21 at a tiny size (the
 LM cards reduced) on the CPU with the plain versions (no kernels, no
 timings) and also exits non-zero.
 """
@@ -300,6 +319,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -435,13 +455,11 @@ def card_line() -> str:
 
 def peak_rates(name: str):
     """(bytes/s, fp32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on
-    the tensor cores) from NVIDIA's data sheets, for the card ``name`` (H100
-    SXM unless it says PCIe / H200)."""
-    if "PCIe" in name or "PCIE" in name:
-        return 2.0e12, 51.2e12, 378e12
-    if "H200" in name:
-        return 4.8e12, 67e12, 495e12
-    return 3.35e12, 67e12, 495e12
+    the tensor cores) of the card ``name``: NVIDIA's data sheets, as
+    ``repro_torch.utils.roofline.peak_rates`` keeps them."""
+    from repro_torch.utils.roofline import peak_rates as rates
+
+    return rates(name)[:3]
 
 
 def split_tf32_bounds(flops, nbytes, card):
@@ -3778,7 +3796,7 @@ def update_diff_lr(torch, a, b, lr):
 
 
 class BackwardClock:
-    """CUDA events around every ``_FlashAttention.backward`` (the plain
+    """CUDA events around every flash backward (``_backward``: the plain
     attention recomputed and differentiated): their summed device time over
     a window, with no synchronise inside it."""
 
@@ -3786,7 +3804,7 @@ class BackwardClock:
         self.torch, self.fops, self.pairs = torch, fops, []
 
     def __enter__(self):
-        fn = self.fops._FlashAttention.backward
+        fn = self.fops._backward
         torch = self.torch
 
         def timed(ctx, grad_out):
@@ -3798,11 +3816,11 @@ class BackwardClock:
             return out
 
         self._saved = fn
-        self.fops._FlashAttention.backward = staticmethod(timed)
+        self.fops._backward = timed
         return self
 
     def __exit__(self, *exc):
-        self.fops._FlashAttention.backward = staticmethod(self._saved)
+        self.fops._backward = self._saved
 
     def ms(self):
         self.torch.cuda.synchronize()
@@ -4147,6 +4165,401 @@ def lm_training(torch, np, fa, ks, dev, args, card):
     return out
 
 
+# ------------------------------------------------------------ phase 21
+KIMI = "kimi-k2-1t-a32b"
+#: 21a: pairs dry-run on the fake 256-rank production mesh
+DRYRUN_PAIRS = (("qwen3-0.6b", "decode_32k"), (KIMI, "decode_32k"))
+EP_RANKS = 8        # 21b: expert-parallel ranks on one card, 48 of kimi's 384 experts each
+EP_TOKENS = 512     # 21b: tokens per rank
+CARD_RANKS = 4      # 21c: ranks of the 1-layer kimi, 96 experts each
+CARD_TOKENS = 1024  # 21c: one sequence per rank
+#: capacity factors at which nothing drops (checked): 21b's ranks, 21c's
+#: ranks (plain branch), and 21c's one-process gather path (every expert's
+#: slots sized over all 4,096 tokens)
+EP_NO_DROP_CF = 2.0
+CARD_NO_DROP_CF = 3.0
+CARD_REFERENCE_CF = 8.0
+#: 21b/c: bf16 tolerance, relative to the largest |value| compared: the two
+#: paths round the same products to bf16 at different points
+EP_TOL = 2.0 ** -6
+EP_SAMPLES = 4096   # 21b: sampled elements of each expert-gradient block
+#: 21b: the gradients taken one backward pass at a time, so no rank (and not
+#: the one-process reference) ever holds every expert's gradient at once
+EP_GRAD_PASSES = (("router", "shared_gate", "shared_up", "shared_down", "w_down"),
+                  ("w_up",), ("w_gate",))
+
+
+def fill_normal(torch, t, gen, scale):
+    """``t`` ← N(0, 1)·scale from ``gen``, drawn in fp32 a few rows at a
+    time (a bf16 table never has a whole fp32 twin)."""
+    flat = t.view(t.shape[0], -1)
+    step = max(1, (1 << 24) // flat.shape[1])
+    for i in range(0, flat.shape[0], step):
+        rows = flat[i:i + step]
+        rows.copy_(torch.randn(rows.shape, generator=gen, device=t.device) * scale)
+    return t
+
+
+def fill_experts(torch, moe, seed, lo, hi):
+    """Experts ``lo..hi`` of the layer into ``moe``'s (hi − lo)-expert
+    tensors, each expert from its own seed, so any split of the experts
+    over ranks draws the same numbers; the router and shared expert (whole
+    on every rank) from theirs."""
+    d, f = moe.cfg.d_model, moe.cfg.moe.d_ff
+    with torch.no_grad():
+        for j, name in enumerate(("w_gate", "w_up", "w_down")):
+            w = getattr(moe, name)
+            for e in range(lo, hi):
+                g = torch.Generator(device=w.device).manual_seed(seed * 100_003 + e * 3 + j)
+                fill_normal(torch, w[e - lo], g, (f if name == "w_down" else d) ** -0.5)
+        g = torch.Generator(device=moe.router.device).manual_seed(seed + 1)
+        fill_normal(torch, moe.router, g, d ** -0.5)
+        for name in ("shared_gate", "shared_up", "shared_down"):
+            fill_normal(torch, getattr(moe, name), g, (f if name == "shared_down" else d) ** -0.5)
+
+
+def ep_layer(torch, cfg, dev, lo, hi):
+    """Kimi's MoE layer holding experts ``lo..hi`` (the whole router and
+    shared expert), in bf16 on ``dev``, allocated once."""
+    from repro_torch.models.moe import MoE
+
+    with torch.device("meta"):
+        moe = MoE(cfg, dtype=torch.bfloat16)
+    for name in ("w_gate", "w_up", "w_down"):
+        w = getattr(moe, name)
+        setattr(moe, name, torch.nn.Parameter(torch.empty((hi - lo,) + w.shape[1:],
+                                                          device="meta", dtype=w.dtype)))
+    return moe.to_empty(device=dev)
+
+
+def ep_tokens(torch, cfg, dev, seed, n):
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    return torch.randn((n, 1, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+
+
+def ep_sample_index(torch, shape, seed):
+    g = torch.Generator().manual_seed(seed + 5)
+    return torch.randint(0, int(torch.tensor(shape).prod()), (EP_SAMPLES,), generator=g)
+
+
+def ep_rank(group, seed, cfg):
+    """Phase 21b on one of ``EP_RANKS`` ranks (``run_parties``, gloo,
+    every rank on the same card): the layer's forward timed at the card's
+    capacity factor (drops, ms a call, the share in gloo, bytes handed to
+    gloo), then forward and backward of ``sum(y²)`` at ``EP_NO_DROP_CF``:
+    this rank's outputs, its share of the router's and shared expert's
+    gradients, and each local expert's gradient norms and sampled
+    elements."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.parties import Traffic
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.moe import apply_moe_alltoall
+
+    dev, r = group.device, group.rank
+    mesh = make_host_mesh(EP_RANKS, 1, device_type=dev.type)
+    e_local = cfg.moe.num_experts // EP_RANKS
+    moe = ep_layer(torch, cfg, dev, r * e_local, (r + 1) * e_local)
+    fill_experts(torch, moe, seed, r * e_local, (r + 1) * e_local)
+    x = ep_tokens(torch, cfg, dev, seed, EP_RANKS * EP_TOKENS)[r * EP_TOKENS:(r + 1) * EP_TOKENS]
+    params = moe.params()
+    out = {}
+    traffic, stats = Traffic(), {}
+    with torch.no_grad():
+        apply_moe_alltoall(params, x, cfg, mesh)  # warm-up
+        ms = []
+        for _ in range(3):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            apply_moe_alltoall(params, x, cfg, mesh, traffic=traffic, stats=stats)
+            sync(torch, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out["drops"] = stats
+    out["ms"] = ms
+    out["gloo_share"] = traffic.seconds * 1e3 / sum(ms)
+    out["bytes_per_call"] = traffic.bytes / len(ms)
+    free_cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=EP_NO_DROP_CF))
+    stats = {}
+    y, _ = apply_moe_alltoall(params, x, free_cfg, mesh, stats=stats)
+    out["no_drop"] = stats
+    out["y"] = y.detach().float()
+    out["experts"], out["shared"] = {}, {}
+    loss = (y.float() ** 2).sum()
+    for i, names in enumerate(EP_GRAD_PASSES):
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    retain_graph=i + 1 < len(EP_GRAD_PASSES))
+        for k, g in zip(names, grads):
+            sample = g.flatten()[ep_sample_index(torch, g.shape, seed).to(dev)].float()
+            if k == "router":
+                out["router"] = g
+            elif k.startswith("shared"):
+                out["shared"][k] = sample
+            else:
+                out["experts"][k] = {"norm": expert_norms(torch, g), "sample": sample}
+        # ``g`` too: the loop's last gradient (1.3 GiB for an expert matrix)
+        # must not live on into the next pass
+        del grads, g
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    return out
+
+
+def expert_norms(torch, g):
+    """Each expert's gradient norm in fp32, (E,), a few experts at a time
+    (no fp32 copy of the whole bf16 gradient)."""
+    return torch.cat([c.float().flatten(1).norm(dim=1) for c in g.split(8)])
+
+
+def max_rel(a, b):
+    """max |a − b| over max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def ep_reference(torch, cfg, dev, seed, ranks):
+    """21b's one-process check: the whole layer (all 384 experts, bf16) on
+    every rank's tokens through ``MoE.node_limited`` at a capacity where
+    nothing drops; its output and the gradients of ``sum(y²)`` against the
+    ranks'."""
+    from repro_torch.models.moe import restrict_to_groups, route
+
+    moe = ep_layer(torch, cfg, dev, 0, cfg.moe.num_experts)
+    fill_experts(torch, moe, seed, 0, cfg.moe.num_experts)
+    x = ep_tokens(torch, cfg, dev, seed, EP_RANKS * EP_TOKENS)
+    with torch.no_grad():
+        probs = torch.softmax(x.reshape(-1, cfg.d_model).float() @ moe.router, dim=-1)
+        _, idx = route(restrict_to_groups(probs, EP_RANKS, cfg.moe.route_groups)[0],
+                       cfg.moe.experts_per_token)
+        cap = -(-int(torch.bincount(idx.flatten()).max()) // 8) * 8
+    y, keep = moe.node_limited(x, EP_RANKS, cap)
+    check(bool(keep.all()), "phase 21b: the one-process reference dropped an assignment")
+    params = moe.params()
+    loss = (y.float() ** 2).sum()
+    yf = y.detach().float().reshape(EP_RANKS, EP_TOKENS, 1, -1)
+    err = {"y": max(max_rel(torch.as_tensor(r["y"], device=dev), yf[i])
+                    for i, r in enumerate(ranks))}
+    e_local = cfg.moe.num_experts // EP_RANKS
+    for p_i, names in enumerate(EP_GRAD_PASSES):
+        grads = torch.autograd.grad(loss, [params[k] for k in names],
+                                    retain_graph=p_i + 1 < len(EP_GRAD_PASSES))
+        for k, g in zip(names, grads):
+            top = max(float(g.max()), -float(g.min()))   # no |g| copy of 11 GB
+            if k == "router":
+                got = sum(torch.as_tensor(r["router"], device=dev) for r in ranks)
+                err[k] = float((got - g).abs().max()) / top
+            elif k.startswith("shared"):
+                idx = ep_sample_index(torch, g.shape, seed).to(dev)
+                got = sum(torch.as_tensor(r["shared"][k], device=dev) for r in ranks)
+                err[k] = float((got - g.flatten()[idx].float()).abs().max()) / top
+            else:
+                norms = expert_norms(torch, g)
+                idx = ep_sample_index(torch, (e_local,) + tuple(g.shape[1:]), seed).to(dev)
+                err[k] = err[f"{k}_norm"] = 0.0
+                for i, r in enumerate(ranks):
+                    want = g[i * e_local:(i + 1) * e_local].flatten()[idx].float()
+                    got = torch.as_tensor(r["experts"][k]["sample"], device=dev)
+                    err[k] = max(err[k], float((got - want).abs().max()) / top)
+                    err[f"{k}_norm"] = max(err[f"{k}_norm"], max_rel(
+                        torch.as_tensor(r["experts"][k]["norm"], device=dev),
+                        norms[i * e_local:(i + 1) * e_local]))
+            del g
+        del grads
+    del moe, params, y, loss
+    return err, cap
+
+
+def card_model(torch, cfg, dev, seed, lo, hi):
+    """Kimi cut to ``cfg``'s one layer, bf16 on ``dev``, holding experts
+    ``lo..hi``; every other tensor whole, from its own seed (the same on
+    every rank), norms at one."""
+    from repro_torch.models.model import CausalLM
+
+    with torch.device("meta"):
+        model = CausalLM(cfg, device="meta")
+    moe = model.layers[0].moe
+    for name in ("w_gate", "w_up", "w_down"):
+        w = getattr(moe, name)
+        setattr(moe, name, torch.nn.Parameter(torch.empty((hi - lo,) + w.shape[1:],
+                                                          device="meta", dtype=w.dtype)))
+    model = model.to_empty(device=dev)
+    with torch.no_grad():
+        fill_experts(torch, moe, seed, lo, hi)
+        for i, (name, p) in enumerate(model.named_parameters()):
+            if ".moe." in name:
+                continue
+            if name.endswith("scale"):
+                p.fill_(1.0)
+            else:
+                g = torch.Generator(device=dev).manual_seed(seed * 7_919 + i)
+                fill_normal(torch, p, g, 0.02 if p.shape[0] == cfg.padded_vocab
+                            else p.shape[-1] ** -0.5)
+    return model
+
+
+def card_tokens(torch, cfg, seed, n):
+    g = torch.Generator().manual_seed(seed + 7)
+    return torch.randint(0, cfg.vocab_size, (n, CARD_TOKENS), generator=g)
+
+
+def card_rank(group, seed, cfg):
+    """Phase 21c on one of ``CARD_RANKS`` ranks: the 1-layer kimi with this
+    rank's experts and the mesh set, one forward of this rank's sequence
+    (``CausalLM.forward``: the MoE's all-to-all form, flash for the
+    attention); its logits and flash launches."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import context as shard_ctx
+
+    dev, r = group.device, group.rank
+    shard_ctx.set_mesh(make_host_mesh(CARD_RANKS, 1, device_type=dev.type))
+    e_local = cfg.moe.num_experts // CARD_RANKS
+    model = card_model(torch, cfg, dev, seed, r * e_local, (r + 1) * e_local)
+    tokens = card_tokens(torch, cfg, seed, CARD_RANKS)[r:r + 1].to(dev)
+    flash_ops.reset_launches()
+    with torch.no_grad():
+        logits = model(tokens)
+    sync(torch, dev)
+    # sent back as bf16 bits (half of fp32's 671 MB a rank through the pipe)
+    return {"logits": logits.to(torch.bfloat16).view(torch.int16),
+            "flash": flash_ops.LAUNCHES["flash_attention"],
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0}
+
+
+def ep_rehearse_config():
+    """Phase 21's rehearsal layer: kimi reduced, 32 experts top-4, route
+    groups 4 (grouped over 21b's 8 ranks, plain over 21c's 4), bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = reduced(get_config(KIMI))
+    return cfg.replace(dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, num_experts=32, experts_per_token=4, d_ff=64, route_groups=4))
+
+
+def sharding_path(torch, np, fa, dev, args, card, sizes):
+    """Phase 21: a. the dry-run of ``DRYRUN_PAIRS`` on the fake 256-rank
+    mesh; b. kimi's MoE layer over ``EP_RANKS`` gloo ranks on ``dev``
+    against the one-process gather path; c. kimi cut to one layer over
+    ``CARD_RANKS`` ranks, the mesh set, against the one-process forward.
+    ``sizes`` is (the card, the layer's config for b and c)."""
+    import dataclasses
+
+    from repro_torch.core.distributed import run_parties
+    from repro_torch.launch.dryrun import dryrun_one
+
+    cfg = sizes
+    out = {"dryrun": {}}
+    for arch, shape in DRYRUN_PAIRS if dev.type == "cuda" else DRYRUN_PAIRS[:1]:
+        t0 = time.perf_counter()
+        r = dryrun_one(arch, shape, verbose=False)
+        check(r["status"] == "ok" and r["chips"] == 256, f"phase 21a: {arch} x {shape}: {r}")
+        m, rf = r["memory"], r["roofline"]
+        out["dryrun"][f"{arch}/{shape}"] = dict(r, seconds=time.perf_counter() - t0)
+        log(f"sharding 21a: dry-run {arch} x {shape} on a fake 256-rank (16, 16) mesh: "
+            f"{r['status']}, peak {m['peak_bytes_per_device']} B and arguments "
+            f"{m['argument_bytes_per_device']} B per rank; roofline (H100 data sheet) compute "
+            f"{rf['compute_s']:.3e}s memory {rf['memory_s']:.3e}s collective "
+            f"{rf['collective_s']:.3e}s -> {rf['bottleneck']}; collectives "
+            f"{r['collectives']}; {time.perf_counter() - t0:.1f}s")
+
+    (build_dir := REPO / "build").mkdir(exist_ok=True)
+    device = dev if dev.type == "cpu" else None
+
+    def spawn(fn, world, layer_cfg):
+        if dev.type == "cuda":  # the ranks share the card: what this process left goes first
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"sharding: before {world} ranks this process holds "
+                f"{torch.cuda.memory_allocated(dev)} B allocated, "
+                f"{torch.cuda.memory_reserved(dev)} B reserved on the card")
+        rdzv = build_dir / f"sharding-rdzv-{time.time_ns()}"
+        try:
+            return run_parties(fn, world, args.seed, layer_cfg, backend="gloo",
+                               init_method=f"file://{rdzv}", device=device, timeout=600)
+        finally:
+            rdzv.unlink(missing_ok=True)
+
+    # b. the expert-parallel layer
+    t0 = time.perf_counter()
+    ranks = spawn(ep_rank, EP_RANKS, cfg)
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:
+        check(r["no_drop"]["dropped1"] == r["no_drop"]["dropped2"] == 0,
+              f"phase 21b: a rank dropped at capacity factor {EP_NO_DROP_CF}: {r['no_drop']}")
+    err, cap = ep_reference(torch, cfg, dev, args.seed, ranks)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    for k, v in err.items():
+        check(v <= EP_TOL, f"phase 21b: {k} differs from the one-process gather path by {v} "
+              f"of its largest value (tolerance {EP_TOL})")
+    e_local = cfg.moe.num_experts // EP_RANKS
+    payload = EP_TOKENS * cfg.moe.route_groups * (cfg.d_model + e_local) * 2
+    med = statistics.median
+    out["ep"] = {"ranks_s": ranks_s, "err": err, "reference_cap": cap,
+                 "ms": [med(r["ms"]) for r in ranks],
+                 "gloo_share": [r["gloo_share"] for r in ranks],
+                 "bytes_per_call": [r["bytes_per_call"] for r in ranks],
+                 "payload_bytes_per_direction": payload,
+                 "drops": [r["drops"] for r in ranks],
+                 "peak_bytes": [r["peak_bytes"] for r in ranks]}
+    log(f"sharding 21b: kimi's MoE layer (d {cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.experts_per_token}, d_ff {cfg.moe.d_ff}, a shared expert, route groups "
+        f"{cfg.moe.route_groups}, bf16) over {EP_RANKS} gloo ranks on {dev}, {e_local} experts "
+        f"and {EP_TOKENS} tokens each: at capacity factor {EP_NO_DROP_CF} nothing dropped and "
+        f"the output and gradients match the one-process gather path (cap {cap}) within "
+        f"{EP_TOL:.4f} of the largest value: {json.dumps(err)}; at the card's factor "
+        f"{cfg.moe.capacity_factor}: drops per rank (stage 1, stage 2) "
+        f"{[(r['drops']['dropped1'], r['drops']['dropped2']) for r in ranks]}, ms a call "
+        f"{[round(v, 3) for v in out['ep']['ms']]}, share in gloo "
+        f"{[round(v, 3) for v in out['ep']['gloo_share']]}, bytes handed to gloo a call "
+        f"{out['ep']['bytes_per_call'][0]:.0f} (two exchanges) against T_l*G*(d+E_l)*2 = "
+        f"{payload} a direction; peak allocated a rank {out['ep']['peak_bytes']} B; ranks "
+        f"{ranks_s:.1f}s")
+    del ranks
+
+    # c. one layer of kimi, the mesh set
+    card_cfg = cfg.replace(num_layers=1, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=CARD_NO_DROP_CF))
+    t0 = time.perf_counter()
+    ranks = spawn(card_rank, CARD_RANKS, card_cfg)
+    ranks_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        for r in ranks:
+            check(r["flash"] == 1, f"phase 21c: a rank launched flash {r['flash']} times, not 1")
+    card_cfg = card_cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=CARD_REFERENCE_CF))
+    model = card_model(torch, card_cfg, dev, args.seed, 0, cfg.moe.num_experts)
+    tokens = card_tokens(torch, card_cfg, args.seed, CARD_RANKS).to(dev)
+    seen = {}
+    hook = model.layers[0].moe.register_forward_hook(
+        lambda mod, inp, outp: seen.update(x=inp[0]))
+    with torch.no_grad():
+        want = model(tokens)
+        hook.remove()
+        _, _, info = model.layers[0].moe(seen["x"], details=True)
+    check(bool(info["keep"].all()), "phase 21c: the one-process forward dropped an assignment")
+    err = max(max_rel(torch.as_tensor(r["logits"], device=dev).view(torch.bfloat16)[0].float(),
+                      want[i]) for i, r in enumerate(ranks))
+    check(err <= EP_TOL, f"phase 21c: the ranks' logits differ from the one-process forward by "
+          f"{err} of the largest (tolerance {EP_TOL})")
+    out["card"] = {"ranks_s": ranks_s, "logits_err": err, "flash": [r["flash"] for r in ranks],
+                   "peak_bytes": [r["peak_bytes"] for r in ranks]}
+    log(f"sharding 21c: {KIMI} at published width cut to 1 layer, bf16, over {CARD_RANKS} gloo "
+        f"ranks on {dev} ({cfg.moe.num_experts // CARD_RANKS} experts each, the mesh set: the "
+        f"MoE's plain all-to-all branch): each rank's logits for 1 x {CARD_TOKENS} tokens "
+        f"within {err:.3g} of the largest of the one-process gather forward (tolerance "
+        f"{EP_TOL:.4f}); flash launches per rank {out['card']['flash']}; peak allocated a rank "
+        f"{out['card']['peak_bytes']} B; ranks {ranks_s:.1f}s")
+    del model, want
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"] = {"flash_attention": sum(out["card"]["flash"])}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4207,6 +4620,7 @@ def main(argv=None) -> int:
         parties_path(torch, np, ck, al, dev, args, (1_000, 20, (4_000, 50, 12_000), 30))
         lm_cards(torch, np, fa, ks, dev, args, "cpu")
         lm_training(torch, np, fa, ks, dev, args, "cpu")
+        sharding_path(torch, np, fa, dev, args, "cpu", ep_rehearse_config())
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -4323,15 +4737,23 @@ def main(argv=None) -> int:
 
     training = lm_training(torch, np, fa, ks, dev, args, card)
 
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+
+    sharding = sharding_path(torch, np, fa, dev, args, card, get_config(KIMI))
+    sharding["phase_s"] = time.perf_counter() - t0
+    log(f"sharding: phase 21 took {sharding['phase_s']:.1f}s")
+
     # each kernel's launches over the main paths that run it: serving (phase
     # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12),
     # the federation with its attached tier (phase 15), the storm (phase 16)
     # the tick engines at full width and over the eleven owners (phase 17,
     # replays counted), the two parties' retrieval (phase 18), the
-    # remaining LM cards (phase 19) and LM training (phase 20)
+    # remaining LM cards (phase 19), LM training (phase 20) and the ranks of
+    # the 1-layer kimi (phase 21)
     lm_launches = {name: lm["qwen3-0.6b"]["launches"].get(name, 0)
                    + lm["mamba2-2.7b"]["launches"].get(name, 0) + cards["launches"][name]
-                   + training["launches"][name]
+                   + training["launches"][name] + sharding["launches"].get(name, 0)
                    for name in ("flash_attention", "ssd_chunks")}
     launches = {name: res["launches"].get(name, 0) + train["launches"].get(name, 0)
                 + hs["launches"].get(name, 0) + lm_launches.get(name, 0)
@@ -4359,7 +4781,7 @@ def main(argv=None) -> int:
               "serve": res,
               "train": train, "handshake": hs, "lm": lm, "federation": fed, "storm": storm,
               "tick_engines": engines, "parties": two_parties, "lm_cards": cards,
-              "lm_training": training,
+              "lm_training": training, "sharding": sharding,
               "timings": times,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

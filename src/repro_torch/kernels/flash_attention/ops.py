@@ -6,16 +6,17 @@ last dimension is contiguous: the model's projections are (B, S, H, Dh), and
 their ``transpose(1, 2)`` goes to the kernel without a copy. The output has
 q's strides (``torch.empty_like``), so the caller's transpose back is free.
 
-For a CUDA tensor it launches the kernel or raises; for a CPU tensor it takes
-the plain version (``ref.attention_ref``). ``LAUNCHES`` counts kernel
+The wrapper is one operator, ``repro_torch::flash_attention``: for a CUDA
+tensor it launches the kernel or raises; for a CPU tensor it takes the
+plain version (``ref.attention_ref``); under ``FakeTensorMode`` (the
+dry-run) it allocates the kernel's output, no (S, T) scores, and
+``torch.utils.flop_counter`` counts its FLOPs. ``LAUNCHES`` counts kernel
 launches, so a run can show its main path went through the kernel.
 
-Gradients: when grad mode is on and an input requires grad, the launch runs
-inside ``_FlashAttention`` (a ``torch.autograd.Function``) whose backward
-recomputes the plain version under ``torch.enable_grad()`` and returns its
+Gradients: the operator's backward (``_backward``) recomputes the plain
+version under ``torch.enable_grad()`` and returns its
 ``torch.autograd.grad``: the gradient the JAX package takes through its jnp
-attention, which has no backward kernel either. Without grad (serving,
-``torch.no_grad()``) the kernel is launched directly, as before.
+attention, which has no backward kernel either.
 
 The JAX package's LM path never reaches its Pallas kernel (its
 ``models/attention.py`` computes dense jnp softmax attention, or an XLA scan
@@ -30,6 +31,7 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._nvcc import SPLIT_TF32, CudaLibrary
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -118,30 +120,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     window``; any S and T (no block divisibility). On the card Dh is one of
     ``HEAD_DIMS`` and the dtype float32 or bfloat16; under grad the output
     carries the plain version's gradient."""
-    dev = _check_inputs(q, k, v)
-    if dev.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, window)
+    _check_inputs(q, k, v)
+    return _flash(q, k, v, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int) -> torch.Tensor:
+    """The kernel on the card; the CPU's and the fake forms are below."""
     return _launch(q, k, v, causal, window)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The kernel forward, the plain version's gradient."""
+@_flash.register_kernel("cpu")
+def _(q, k, v, causal, window):
+    return attention_ref(q, k, v, causal=causal, window=window)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return _launch(q, k, v, causal, window)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            out = attention_ref(q, k, v, causal=ctx.causal, window=ctx.window)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out)
-        return dq, dk, dv, None, None
+@_flash.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def _setup(ctx, inputs, output):
+    q, k, v, ctx.causal, ctx.window = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, grad_out):
+    """The plain version's gradient: the attention recomputed under grad."""
+    q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+    with torch.enable_grad():
+        out = attention_ref(q, k, v, causal=ctx.causal, window=ctx.window)
+    return (*torch.autograd.grad(out, (q, k, v), grad_out), None, None)
+
+
+# looked up when called, so that a caller can wrap ``_backward`` (the smoke times it)
+_flash.register_autograd(lambda ctx, grad_out: _backward(ctx, grad_out), setup_context=_setup)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """QKᵀ and PV over every (query, key) pair: 4·B·H·S·T·Dh."""
+    b, h, s, dh = q_shape
+    return 4 * b * h * s * k_shape[2] * dh
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

@@ -15,13 +15,16 @@ chunks (the JAX wrapper's ``lax.scan`` outside the kernel) and
 ``y = y_intra + C · S_enter · exp(cum)`` → ``(y (B, S, H, P), final_state
 (B, H, P, N))``.
 
-For CUDA tensors ``ssd_chunks`` launches the kernel or raises; for CPU
-tensors it takes ``ssd_chunks_plain``, the same arithmetic in plain
-PyTorch. Under grad (an input requires grad and grad mode is on) the launch
-runs inside ``_SSDChunks``, a ``torch.autograd.Function`` whose backward
-recomputes ``ssd_chunks_plain`` and returns its ``torch.autograd.grad``:
+``ssd_chunks`` is one operator, ``repro_torch::ssd_chunks``: for CUDA
+tensors it launches the kernel or raises; for CPU tensors it takes
+``ssd_chunks_plain``, the same arithmetic in plain PyTorch; under
+``FakeTensorMode`` (the dry-run) it allocates the kernel's outputs, without
+the plain version's per-position loop, and ``torch.utils.flop_counter``
+counts its FLOPs. Its backward recomputes ``ssd_chunks_plain`` and returns
+its ``torch.autograd.grad`` (under fake tensors, the shape-only operator
+``repro_torch::ssd_chunks_backward``):
 the gradient the JAX package takes through its jnp ``ssd``, which has no
-backward kernel either. Without grad the kernel is launched directly. A block of the kernel serves one chunk of ``head_group`` heads and
+backward kernel either. A block of the kernel serves one chunk of ``head_group`` heads and
 forms C·Bᵀ once for them. Both take the in-chunk cumulative sum of
 ``dt · a`` in one fixed sequential order: at the full card ``cum`` reaches
 about −10³ within a chunk, where a different summation order moves
@@ -41,6 +44,8 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._nvcc import SPLIT_TF32, CudaLibrary
 
@@ -208,28 +213,84 @@ def ssd_chunks(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Ten
     dimension of x, B and C contiguous, P one of ``HEAD_DIMS``; views whose
     rows the kernel's 16-byte copies cannot read are copied first. A block
     serves ``head_group``'s choice of heads."""
-    dev = _check_inputs(x, dt, a, bm, cm)
-    if dev.type == "cpu":
-        return ssd_chunks_plain(x, dt, a, bm, cm)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, bm, cm)):
-        return _SSDChunks.apply(x, dt, a, bm, cm)
+    _check_inputs(x, dt, a, bm, cm)
+    return _ssd(x, dt, a, bm, cm)
+
+
+@torch.library.custom_op("repro_torch::ssd_chunks", mutates_args=(), device_types="cuda")
+def _ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
+         cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel on the card; the CPU's and the fake forms are below."""
     return _launch(x, dt, a, bm, cm)
 
 
-class _SSDChunks(torch.autograd.Function):
-    """The kernel forward, the plain version's gradient."""
+@_ssd.register_kernel("cpu")
+def _(x, dt, a, bm, cm):
+    return ssd_chunks_plain(x, dt, a, bm, cm)
 
-    @staticmethod
-    def forward(ctx, x, dt, a, bm, cm):
-        ctx.save_for_backward(x, dt, a, bm, cm)
-        return _launch(x, dt, a, bm, cm)
 
-    @staticmethod
-    def backward(ctx, *grads):
-        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = ssd_chunks_plain(*ins)
-        return torch.autograd.grad(outs, ins, grads)
+@_ssd.register_fake
+def _(x, dt, a, bm, cm):
+    b, h, nc, q, p = x.shape
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty((b, h, nc, q, p), **f32), x.new_empty((b, h, nc, p, bm.shape[-1]), **f32),
+            x.new_empty((b, h, nc, q), **f32))
+
+
+@torch.library.custom_op("repro_torch::ssd_chunks_backward", mutates_args=())
+def _ssd_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bm: torch.Tensor,
+                  cm: torch.Tensor, gy: torch.Tensor, gs: torch.Tensor, gd: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The gradient's shape-only form: under fake tensors (the dry-run) it
+    gives the gradients' shapes and FLOPs without the plain version's
+    per-position loop. Real tensors take ``_backward``'s plain gradient."""
+    raise RuntimeError("ssd_chunks_backward is shape-only: real tensors take _backward")
+
+
+@_ssd_backward.register_fake
+def _(x, dt, a, bm, cm, gy, gs, gd):
+    return tuple(torch.empty_like(t) for t in (x, dt, a, bm, cm))
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+    ctx.out_shapes = [o.shape for o in output]
+
+
+def _backward(ctx, gy, gs, gd):
+    """The plain version's gradient, recomputed under grad (autograd does not
+    run inside an operator, so not as one)."""
+    saved = ctx.saved_tensors
+    grads = [g if g is not None else saved[0].new_zeros(shape, dtype=torch.float32)
+             for g, shape in zip((gy, gs, gd), ctx.out_shapes)]
+    if isinstance(saved[0], FakeTensor):
+        return _ssd_backward(*saved, *grads)
+    ins = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        outs = ssd_chunks_plain(*ins)
+    return torch.autograd.grad(outs, ins, grads)
+
+
+_ssd.register_autograd(_backward, setup_context=_setup)
+
+
+def _ssd_flops(x_shape, bm_shape) -> int:
+    """C·Bᵀ per chunk (2·B·NC·Q²·N), its product with x (2·B·H·NC·Q²·P)
+    and the chunk states (2·B·H·NC·Q·P·N)."""
+    b, h, nc, q, p = x_shape
+    n = bm_shape[-1]
+    return 2 * b * nc * q * q * n + 2 * b * h * nc * q * q * p + 2 * b * h * nc * q * p * n
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunks)
+def _(x_shape, dt_shape, a_shape, bm_shape, cm_shape, *args, out_shape=None, **kwargs) -> int:
+    return _ssd_flops(x_shape, bm_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunks_backward)
+def _(x_shape, dt_shape, a_shape, bm_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * _ssd_flops(x_shape, bm_shape)  # each product's two transposes
 
 
 def _launch(x, dt, a, bm, cm):

@@ -24,10 +24,13 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import Linear, RMSNorm, apply_rope
+from repro_torch.sharding import cores
 
 NEG_INF = -1e30
 
@@ -36,18 +39,62 @@ def _split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n, dh)
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """q: (B, S, H, Dh), k: (B, T, KV, Dh) → scores (B, KV, G, S, T) fp32."""
-    b, s, h, dh = q.shape
-    qg = q.reshape(b, s, n_kv, h // n_kv, dh)
-    return torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+def attend_one(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid: Optional[torch.Tensor] = None, groups=()) -> torch.Tensor:
+    """One query per row, q (B, 1, H, Dh), against keys and values (B, T,
+    KV, Dh) → the context (B, 1, H, Dh); ``valid`` (B, T) masks keys. Under
+    a mesh whose ranks hold slices of the sequence, ``groups`` are the
+    process groups over those slices and the softmax is combined over
+    them (a max, the exp-sums and the weighted values, all-reduced)."""
+    b, _, h, dh = q.shape
+    n_kv = k.shape[2]
+    qg = q.float().reshape(b, 1, n_kv, h // n_kv, dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) / math.sqrt(dh)
+    if valid is not None:
+        scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    if not groups:
+        probs = torch.softmax(scores, dim=-1)
+        o = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+        return o.reshape(b, 1, h, dh).to(q.dtype)
+
+    def over_groups(t, op):
+        for g in groups:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+        return t
+
+    mx = over_groups(scores.amax(-1, keepdim=True), "max")
+    p = torch.exp(scores - mx)
+    den = over_groups(p.sum(-1, keepdim=True), "sum")
+    o = over_groups(torch.einsum("bkgst,btkd->bskgd", p, v.float()), "sum")
+    o = o / den.permute(0, 3, 1, 2, 4)
+    return o.reshape(b, 1, h, dh).to(q.dtype)
 
 
-def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """probs: (B, KV, G, S, T), v: (B, T, KV, Dh) → (B, S, H·Dh)."""
-    b, kv, g, s, _ = probs.shape
-    o = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
-    return o.reshape(b, s, kv * g * v.shape[-1])
+def decode_one(q: torch.Tensor, k1: torch.Tensor, v1: torch.Tensor, ck: torch.Tensor,
+               cv: torch.Tensor, pos: torch.Tensor, window: int, *, lo: int = 0,
+               groups=()) -> torch.Tensor:
+    """One token per row: q (B, 1, H, Dh), k1/v1 (B, 1, KV, Dh), written into
+    the cache ck/cv (B, T, KV, Dh) at each row's ``pos`` (B,), then keys
+    ``t ≤ pos`` (within the window) attended → (B, 1, H, Dh). Under a mesh
+    the cache is this rank's slice of the sequence from position ``lo``
+    (``groups`` as in ``attend_one``) and a row writes only where its
+    position falls inside it."""
+    t = ck.shape[1]
+    r = torch.arange(q.shape[0], device=q.device)
+    if groups:
+        local = pos - lo
+        mine = ((local >= 0) & (local < t))[:, None, None]
+        idx = local.clamp(0, t - 1)
+        ck[r, idx] = torch.where(mine, k1[:, 0].to(ck.dtype), ck[r, idx])
+        cv[r, idx] = torch.where(mine, v1[:, 0].to(cv.dtype), cv[r, idx])
+    else:
+        ck[r, pos] = k1[:, 0].to(ck.dtype)
+        cv[r, pos] = v1[:, 0].to(cv.dtype)
+    ti = lo + torch.arange(t, device=q.device)[None, :]
+    valid = ti <= pos[:, None]
+    if window:
+        valid &= (pos[:, None] - ti) < window
+    return attend_one(q, ck, cv, valid, groups)
 
 
 def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device=None) -> dict:
@@ -82,9 +129,10 @@ class Attention(nn.Module):
         ``positions`` unless K and V come from ``kv_x``."""
         cfg = self.cfg
         src = x if kv_x is None else kv_x
-        q = _split_heads(self.wq(x), cfg.num_heads, cfg.head_dim)
-        k = _split_heads(self.wk(src), cfg.num_kv_heads, cfg.head_dim)
-        v = _split_heads(self.wv(src), cfg.num_kv_heads, cfg.head_dim)
+        split = cores.split_heads if isinstance(x, DTensor) else _split_heads
+        q = split(self.wq(x), cfg.num_heads, cfg.head_dim)
+        k = split(self.wk(src), cfg.num_kv_heads, cfg.head_dim)
+        v = split(self.wv(src), cfg.num_kv_heads, cfg.head_dim)
         if self.q_norm is not None:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -97,9 +145,12 @@ class Attention(nn.Module):
         """(B, S, H, Dh) projections → (B, S, H·Dh) context through the
         flash-attention kernel; the transposes are views."""
         b, s = q.shape[:2]
+        window = self.cfg.sliding_window if causal else 0
+        if isinstance(q, DTensor):
+            return cores.flash(q, k, v, causal=causal, window=window).reshape(b, s, -1)
         ctx = flash_ops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-            window=self.cfg.sliding_window if causal else 0)
+            window=window)
         return ctx.transpose(1, 2).reshape(b, s, -1)
 
     def forward(self, x: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
@@ -124,9 +175,13 @@ class Attention(nn.Module):
         """One token per row, x (B, 1, d), attending every row of
         ``memory``'s K/V (the encoder's, written by ``prefill_cross``)."""
         cfg = self.cfg
-        q = _split_heads(self.wq(x), cfg.num_heads, cfg.head_dim)
-        scores = _gqa_scores(q, memory["k"], cfg.num_kv_heads) / math.sqrt(cfg.head_dim)
-        return self.wo(_gqa_out(torch.softmax(scores, dim=-1), memory["v"]))
+        split = cores.split_heads if isinstance(x, DTensor) else _split_heads
+        q = split(self.wq(x), cfg.num_heads, cfg.head_dim)
+        if isinstance(x, DTensor):
+            ctx = cores.attend_memory(attend_one, q, memory)
+        else:
+            ctx = attend_one(q, memory["k"], memory["v"])
+        return self.wo(ctx.reshape(x.shape[0], 1, -1))
 
     def prefill(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
         """Causal attention over x (B, S, d) that also writes K/V into the
@@ -135,6 +190,10 @@ class Attention(nn.Module):
         positions = torch.arange(s, device=x.device)[None, :]
         q, k, v = self._qkv(x, positions)
         y = self.wo(self._flash(q, k, v, causal=True))
+        if isinstance(x, DTensor):
+            cores.write_prefix(cache["k"], k)
+            cores.write_prefix(cache["v"], v)
+            return y
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)
         return y
@@ -147,15 +206,8 @@ class Attention(nn.Module):
         b = x.shape[0]
         pos = pos.to(device=x.device, dtype=torch.long)
         q, k1, v1 = self._qkv(x, pos[:, None])
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, pos] = k1[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, pos] = v1[:, 0].to(cache["v"].dtype)
-        k, v = cache["k"], cache["v"]
-        ti = torch.arange(k.shape[1], device=x.device)[None, :]
-        valid = ti <= pos[:, None]
-        if cfg.sliding_window:
-            valid &= (pos[:, None] - ti) < cfg.sliding_window
-        scores = _gqa_scores(q, k, cfg.num_kv_heads) / math.sqrt(cfg.head_dim)
-        scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        return self.wo(_gqa_out(probs, v))
+        if isinstance(x, DTensor):
+            ctx = cores.decode(decode_one, q, k1, v1, cache, pos, cfg.sliding_window)
+        else:
+            ctx = decode_one(q, k1, v1, cache["k"], cache["v"], pos, cfg.sliding_window)
+        return self.wo(ctx.reshape(b, 1, -1))

@@ -24,6 +24,7 @@ from repro_torch.models.attention import Attention, init_kv_cache
 from repro_torch.models.layers import MLP, make_norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2Mixer, init_ssm_cache
+from repro_torch.sharding.context import batch_rows
 
 
 @dataclass(frozen=True)
@@ -102,15 +103,15 @@ class DecoderLayer(nn.Module):
     def _cross(self, h: torch.Tensor, encoder_out: Optional[torch.Tensor]) -> torch.Tensor:
         if self.cross_attn is None or encoder_out is None:
             return h
-        return h + self.cross_attn(self.norm_cross(h), kv_x=encoder_out, causal=False)
+        return batch_rows(h + self.cross_attn(self.norm_cross(h), kv_x=encoder_out, causal=False))
 
     def _ffn(self, h: torch.Tensor, moe_groups: str = "joint"):
         """→ (h after the FFN, the MoE aux loss or 0)."""
         if self.mlp is not None:
-            return h + self.mlp(self.norm_ffn(h)), h.new_zeros((), dtype=torch.float32)
+            return batch_rows(h + self.mlp(self.norm_ffn(h))), h.new_zeros((), dtype=torch.float32)
         if self.moe is not None:
             y, aux = self.moe(self.norm_ffn(h), groups=moe_groups)
-            return h + y, aux
+            return batch_rows(h + y), aux
         return h, h.new_zeros((), dtype=torch.float32)
 
     def forward(self, h: torch.Tensor, *, positions: Optional[torch.Tensor] = None,
@@ -121,7 +122,7 @@ class DecoderLayer(nn.Module):
             y = self.attn(x, positions=positions, causal=causal)
         else:
             y, _ = self.ssm(x)
-        return self._ffn(self._cross(h + y, encoder_out))
+        return self._ffn(self._cross(batch_rows(h + y), encoder_out))
 
     def prefill(self, h: torch.Tensor, cache: dict,
                 encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -132,10 +133,10 @@ class DecoderLayer(nn.Module):
             y = self.attn.prefill(x, cache["kv"])
         else:
             y = self.ssm.prefill(x, cache["ssm"])
-        h = h + y
+        h = batch_rows(h + y)
         if self.cross_attn is not None and encoder_out is not None:
-            h = h + self.cross_attn.prefill_cross(self.norm_cross(h), encoder_out,
-                                                  cache["cross_kv"])
+            h = batch_rows(h + self.cross_attn.prefill_cross(self.norm_cross(h), encoder_out,
+                                                           cache["cross_kv"]))
         return self._ffn(h)[0]
 
     def decode(self, h: torch.Tensor, cache: dict, pos: torch.Tensor,
@@ -145,9 +146,10 @@ class DecoderLayer(nn.Module):
             y = self.attn.decode(x, cache["kv"], pos)
         else:
             y = self.ssm.decode(x, cache["ssm"])
-        h = h + y
+        h = batch_rows(h + y)
         if self.cross_attn is not None:
-            h = h + self.cross_attn.decode_memory(self.norm_cross(h), cache["cross_kv"])
+            h = batch_rows(h + self.cross_attn.decode_memory(self.norm_cross(h),
+                                                           cache["cross_kv"]))
         return self._ffn(h, moe_groups)[0]
 
 

@@ -14,6 +14,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import cores
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -98,6 +101,8 @@ class Embedding(nn.Module):
         self.weight = nn.Parameter(torch.empty(vocab, d, device=device, dtype=dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.weight, DTensor):
+            return cores.embedding(ids, self.weight)
         return F.embedding(ids, self.weight)
 
     @torch.no_grad()

@@ -35,13 +35,17 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.blocks import DecoderLayer, LayerKind, init_layer_cache, layout
 from repro_torch.models.layers import (
     Embedding, Linear, dtype_of, make_norm, normal_, sinusoidal_positions, unembed)
+from repro_torch.sharding import cores
+from repro_torch.sharding.context import batch_rows
 
 ENCODER_KIND = LayerKind("attn", "dense", cross=False)
 
@@ -69,6 +73,15 @@ def run_layer(cfg, layer: nn.Module, h: torch.Tensor, **kw):
     return ckpt.checkpoint(functools.partial(layer, **kw), h, use_reentrant=False, **extra)
 
 
+def _project(proj: Linear, x: torch.Tensor) -> torch.Tensor:
+    """A frontend stub's projection (frames, patches); under a mesh its
+    weight is whole on every rank."""
+    if isinstance(x, DTensor):
+        return cores.per_rows(F.linear, x, *(t for t in (proj.weight, proj.bias)
+                                             if t is not None))
+    return proj(x)
+
+
 class Encoder(nn.Module):
     """Whisper-style encoder over stubbed frame embeddings (B, S_enc, d)."""
 
@@ -82,7 +95,7 @@ class Encoder(nn.Module):
         self.final_norm = make_norm(d, cfg.norm, cfg.norm_eps, **kw)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        h = self.frame_proj(frames.to(self.frame_proj.weight.dtype))
+        h = _project(self.frame_proj, frames.to(self.frame_proj.weight.dtype))
         h = h + sinusoidal_positions(frames.shape[1], self.cfg.d_model,
                                      device=h.device).to(h.dtype)[None]
         for layer in self.layers:
@@ -138,8 +151,8 @@ class CausalLM(nn.Module):
             positions = positions.clamp(max=self.cfg.learned_pos_emb - 1)
             h = h + self.pos_emb[positions].expand(h.shape)
         if self.patch_proj is not None and patches is not None:
-            h = torch.cat([self.patch_proj(patches.to(h.dtype)), h], dim=1)
-        return h
+            h = torch.cat([_project(self.patch_proj, patches.to(h.dtype)), h], dim=1)
+        return batch_rows(h)
 
     # ------------------------------------------------------------ passes
     def forward(self, tokens: torch.Tensor, *, frames: Optional[torch.Tensor] = None,
@@ -329,6 +342,27 @@ _FORMS = {
 }
 
 
+def reference_leaves(cfg, model: "CausalLM"):
+    """Each of ``model``'s state-dict entries with where the JAX package's
+    ``init_params`` tree keeps it: yields (key, tensor, the tree path —
+    ``("layers", "[p]", ...)`` for a layer of period position p —, whether
+    the leaf is a layer stack ``(repeats, …)`` there, and whether the
+    reference's matrix is this tensor's transpose)."""
+    _, period, _ = layout(cfg)
+    for key, p in model.state_dict().items():
+        parts = key.split(".")
+        head = 1 if parts[0] == "layers" else 2 if parts[:2] == ["encoder", "layers"] else 0
+        if not head:
+            path, tr = _leaf_path(model, key)
+            yield key, p, path, False, tr
+            continue
+        i = int(parts[head])
+        sub = model.get_submodule(".".join(parts[:head + 1]))
+        path, tr = _leaf_path(sub, ".".join(parts[head + 1:]))
+        pos = i % period if head == 1 else 0
+        yield key, p, (*parts[:head], f"[{pos}]", *path), True, tr
+
+
 def lm_tree(cfg, model: "CausalLM", form: str = "numpy") -> dict:
     """``model``'s parameters as the JAX package's ``init_params`` tree: each
     layer stack ``(repeats, …)`` per period position, ``(d_in, d_out)``
@@ -336,29 +370,24 @@ def lm_tree(cfg, model: "CausalLM", form: str = "numpy") -> dict:
     parameters' dtype (``form="numpy"``), CPU tensors (``"tensor"``) or
     ``LeafSpec``s (``"spec"``)."""
     leaf, stack = _FORMS[form]
-    _, period, _ = layout(cfg)
     tree: dict = {}
     stacks: Dict[tuple, list] = {}
-    for key, p in model.state_dict().items():
-        parts = key.split(".")
-        head = 1 if parts[0] == "layers" else 2 if parts[:2] == ["encoder", "layers"] else 0
-        if not head:
-            path, tr = _leaf_path(model, key)
-            _set(tree, path, leaf(p.T if tr else p))
-            continue
-        i = int(parts[head])
-        sub = model.get_submodule(".".join(parts[:head + 1]))
-        path, tr = _leaf_path(sub, ".".join(parts[head + 1:]))
-        pos = i % period if head == 1 else 0
-        stacks.setdefault((tuple(parts[:head]), pos, path), []).append(leaf(p.T if tr else p))
-    for (root, pos, path), leaves in stacks.items():
+    for _, p, path, stacked, tr in reference_leaves(cfg, model):
+        value = leaf(p.T if tr else p)
+        if stacked:
+            stacks.setdefault(path, []).append(value)
+        else:
+            _set(tree, path, value)
+    for path, leaves in stacks.items():
+        j = next(i for i, k in enumerate(path) if k.startswith("["))
+        root, pos = path[:j], int(path[j][1:-1])
         node = tree
         for k in root[:-1]:
             node = node.setdefault(k, {})
         positions = node.setdefault(root[-1], [])
         while len(positions) <= pos:
             positions.append({})
-        _set(positions[pos], path, stack(leaves))
+        _set(positions[pos], path[j + 1:], stack(leaves))
     return tree
 
 

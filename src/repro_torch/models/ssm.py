@@ -21,9 +21,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import Linear, normal_
+from repro_torch.sharding import cores
+from repro_torch.sharding.context import batch_rows
 
 
 def _segsum_matrix(a: torch.Tensor) -> torch.Tensor:
@@ -156,6 +159,12 @@ class Mamba2Mixer(nn.Module):
         dt = F.softplus(dtp.float() + self.dt_bias)
         return xh, bm, cm, dt, -torch.exp(self.A_log)
 
+    def _conv(self, xbc: torch.Tensor) -> torch.Tensor:
+        """The causal conv and silu; under a mesh on each rank's rows."""
+        if isinstance(xbc, DTensor):
+            return cores.per_rows(_causal_conv, xbc, self.conv_w, self.conv_b)
+        return _causal_conv(xbc, self.conv_w, self.conv_b)
+
     def _gate_out(self, y: torch.Tensor, z: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Gated RMSNorm (Mamba2 style) ``norm(y · silu(z))``, then out_proj."""
         yz = y * F.silu(z.float()).to(y.dtype)
@@ -166,16 +175,19 @@ class Mamba2Mixer(nn.Module):
 
     def _ssd(self, xh, dt, A, bm, cm, chunk: int, state=None):
         """The SSD through the chunk kernel, in fp32 → (y in x's dtype, state)."""
-        y, final = ssd_ops.ssd_chunk_kernel_apply(
-            xh.float(), dt, A, bm.float(), cm.float(), chunk=chunk, state=state)
+        args = (xh.float(), dt, A, bm.float(), cm.float())
+        if isinstance(xh, DTensor):  # each rank's batch rows, every head
+            y, final = cores.ssd(ssd_ops.ssd_chunk_kernel_apply, *args, chunk, state)
+        else:
+            y, final = ssd_ops.ssd_chunk_kernel_apply(*args, chunk=chunk, state=state)
         return y.to(xh.dtype), final
 
     def forward(self, u: torch.Tensor, state: Optional[torch.Tensor] = None):
         """Full block over a sequence (``ssm_block``). u: (B, S, d) →
         (y, final SSD state). S must be a multiple of ``min(chunk, S)``."""
         b, s, _ = u.shape
-        z, xbc, dtp, di, g, n, h = _split_proj(self.cfg, self.in_proj(u))
-        xbc = _causal_conv(xbc, self.conv_w, self.conv_b)
+        z, xbc, dtp, di, g, n, h = _split_proj(self.cfg, batch_rows(self.in_proj(u)))
+        xbc = self._conv(xbc)
         xh, bm, cm, dt, A = self._ssd_inputs(xbc, dtp, di, g, n, h)
         y, final_state = self._ssd(xh, dt, A, bm, cm, self.cfg.ssm.chunk_size, state)
         y = y + xh * self.D[None, None, :, None]
@@ -187,13 +199,13 @@ class Mamba2Mixer(nn.Module):
         multiple with dt = 0 rows, which leave the state unchanged."""
         cfg = self.cfg
         b, s, _ = u.shape
-        z, xbc_raw, dtp, di, g, n, h = _split_proj(cfg, self.in_proj(u))
+        z, xbc_raw, dtp, di, g, n, h = _split_proj(cfg, batch_rows(self.in_proj(u)))
         w = cfg.ssm.conv_width
         if s >= w - 1:
             tail = xbc_raw[:, s - (w - 1):, :]
         else:
             tail = F.pad(xbc_raw, (0, 0, w - 1 - s, 0))
-        xbc = _causal_conv(xbc_raw, self.conv_w, self.conv_b)
+        xbc = self._conv(xbc_raw)
         xh, bm, cm, dt, A = self._ssd_inputs(xbc, dtp, di, g, n, h)
         q = min(cfg.ssm.chunk_size, s)
         pad = (q - s % q) % q
@@ -213,7 +225,7 @@ class Mamba2Mixer(nn.Module):
         """Single-token decode (``ssm_decode_step``). u: (B, 1, d)."""
         cfg = self.cfg
         b = u.shape[0]
-        z, xbc, dtp, di, g, n, h = _split_proj(cfg, self.in_proj(u[:, 0]))
+        z, xbc, dtp, di, g, n, h = _split_proj(cfg, batch_rows(self.in_proj(u[:, 0])))
         hist = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)          # (B, W, C)
         conv_out = (hist.float() * self.conv_w.float()).sum(1)
         xbc_t = F.silu(conv_out + self.conv_b.float()).to(u.dtype)
@@ -228,7 +240,10 @@ class Mamba2Mixer(nn.Module):
         upd = (dt[..., None] * xh.float())[..., None] * bmr[:, :, None, :].float()
         state = cache["state"] * decay[..., None, None] + upd               # (B, H, P, N)
         cache["state"].copy_(state)
-        y = torch.einsum("bhpn,bhn->bhp", state, cmr.float())
+        if isinstance(state, DTensor):  # no product over a (B·H) dim split on two mesh axes
+            y = (state * cmr.float()[:, :, None, :]).sum(-1)
+        else:
+            y = torch.einsum("bhpn,bhn->bhp", state, cmr.float())
         y = y + xh.float() * self.D[None, :, None]
         yz = y.reshape(b, di) * F.silu(z.float())
         ms = yz.square().mean(-1, keepdim=True)

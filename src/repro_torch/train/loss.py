@@ -13,15 +13,19 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.models.layers import unembed
+from repro_torch.sharding import cores
 
 
 def _ce_from_logits(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                     z_loss: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """logits (N, V) fp32, labels (N,), mask (N,) → (sum of the masked NLL,
     z_loss · sum of the masked lse²)."""
+    if isinstance(logits, DTensor):
+        return cores.cross_entropy(logits, labels, mask, z_loss)
     m = mask.float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.take_along_dim(logits, labels[:, None], dim=-1)[:, 0]

@@ -16,6 +16,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import CausalLM, init_params, lm_params_from_numpy
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update, moment_dtype_of
@@ -79,10 +80,10 @@ def make_grad_fn(cfg, tcfg):
         b = next(iter(batch.values())).shape[0]
         if b % n:
             raise ValueError(f"global batch {b} is not a multiple of {n} microbatches")
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in params]
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         lsum = torch.zeros((), dtype=torch.float32, device=params[0].device)
         for j in range(n):
-            mb = {k: v[j::n] for k, v in batch.items() if v is not None}
+            mb = {k: microbatch(v, j, n) for k, v in batch.items() if v is not None}
             loss, metrics = loss_fn(model, mb)
             for acc, g in zip(gsum, _grad(loss, params)):
                 acc.add_(g)
@@ -90,6 +91,22 @@ def make_grad_fn(cfg, tcfg):
         return lsum / n, _detach(metrics), {k: g / n for k, g in zip(names, gsum)}
 
     return grad_fn
+
+
+def microbatch(v: torch.Tensor, j: int, n: int) -> torch.Tensor:
+    """Rows ``j, j + n, j + 2n, …`` of ``v``. A DTensor whose batch rows
+    are split in blocks that n divides takes them from each rank's own
+    block, with no exchange (the global rows j::n are each block's local
+    rows j::n)."""
+    if not isinstance(v, DTensor):
+        return v[j::n]
+    local = v.to_local()
+    if local.shape[0] % n:
+        return v[j::n]
+    shape = (v.shape[0] // n, *v.shape[1:])
+    return DTensor.from_local(local[j::n].contiguous(), v.device_mesh, v.placements,
+                              run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
 
 
 def _grad(loss, params):

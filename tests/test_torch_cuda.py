@@ -1578,3 +1578,78 @@ def test_train_step_on_the_card_equals_the_cpu(cuda_dev, arch, mb):
     for k, p in cpu.model.state_dict().items():
         dw = p - start[k]
         assert float((got[k].cpu() - start[k] - dw).norm()) <= 5e-3 * float(dw.norm()), k
+
+
+#: the all-to-all MoE against the gather path in bf16: relative to the
+#: largest |value|, as chip_smoke.py phase 21b holds them
+EP_TOL = 2.0 ** -6
+
+
+def _ep_case(route_groups):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("kimi-k2-1t-a32b")
+    moe = dataclasses.replace(cfg.moe, num_experts=32, experts_per_token=4, d_ff=128,
+                              route_groups=route_groups, capacity_factor=16.0)
+    return cfg.replace(d_model=256, moe=moe)
+
+
+def _ep_blocks(name, results, world):
+    """A gradient from 4 ranks of a (4, 1) mesh: the router's shares summed,
+    the shared expert's shares summed, the experts' blocks concatenated."""
+    g = [r["grads"][name] for r in sorted(results, key=lambda r: r["coord"])]
+    if name == "router" or name.startswith("shared"):
+        return sum(g)
+    return np.concatenate(g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route_groups", [2, 4], ids=["grouped", "plain"])
+def test_expert_parallel_moe_on_the_card_equals_the_gather_path(cuda_dev, tmp_path,
+                                                                 route_groups):
+    """kimi's MoE layer, narrowed (d 256, 32 experts top-4, d_ff 128, a
+    shared expert), bf16, over 4 gloo ranks sharing the card at a capacity
+    where nothing drops: the outputs and the gradients of ``sum(y²) + aux``
+    (the experts', router's and shared expert's) against the one-process
+    gather path on the same routing (``MoE.node_limited``; route groups 2
+    takes the grouped branch, 4 the plain one)."""
+    from _torch_ranks import moe_rank
+    from repro_torch.core import parties
+    from repro_torch.models.moe import MoE
+
+    world = 4
+    cfg = _ep_case(route_groups)
+    rng = np.random.default_rng(0)
+    d, e, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff
+    params = {"router": rng.normal(size=(d, e)) / d ** 0.5,
+              "w_gate": rng.normal(size=(e, d, f)) / d ** 0.5,
+              "w_up": rng.normal(size=(e, d, f)) / d ** 0.5,
+              "w_down": rng.normal(size=(e, f, d)) / f ** 0.5,
+              "shared_gate": rng.normal(size=(1, d, f)) / d ** 0.5,
+              "shared_up": rng.normal(size=(1, d, f)) / d ** 0.5,
+              "shared_down": rng.normal(size=(1, f, d)) / f ** 0.5}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    x = rng.normal(size=(world * 64, 1, d)).astype(np.float32)
+    res = parties.run_parties(moe_rank, world, (world, 1), [cfg], params, x, "bfloat16",
+                              backend="gloo", init_method=f"file://{tmp_path}/rdzv")
+    res = [r[0] for r in res]
+    for r in res:
+        assert r["stats"]["dropped1"] == r["stats"]["dropped2"] == 0
+    moe = MoE(cfg, device=cuda_dev, dtype=torch.bfloat16)
+    moe.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    xb = torch.from_numpy(x).to(cuda_dev, torch.bfloat16)
+    y, keep = moe.node_limited(xb, world, x.shape[0])
+    assert bool(keep.all())
+    named = moe.params()
+    grads = torch.autograd.grad((y.float() ** 2).sum(), list(named.values()))
+    got = np.concatenate([r["y"] for r in sorted(res, key=lambda r: r["coord"])])
+    want = y.detach().float().cpu().numpy()
+    assert np.abs(got - want).max() <= EP_TOL * np.abs(want).max()
+    for name, g in zip(named, grads):
+        if name == "router":
+            continue  # the ranks' loss adds the aux, whose router gradient the gather path lacks
+        want = g.float().cpu().numpy()
+        err = np.abs(_ep_blocks(name, res, world) - want).max() / np.abs(want).max()
+        assert err <= EP_TOL, (name, err)

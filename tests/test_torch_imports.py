@@ -68,7 +68,12 @@ def test_port_files_exist():
                  "src/repro_torch/optim/schedule.py", "src/repro_torch/train/__init__.py",
                  "src/repro_torch/train/loss.py", "src/repro_torch/train/step.py",
                  "src/repro_torch/launch/train.py", "examples/train_lm_torch.py",
-                 "examples/federated_lm_embeddings_torch.py"):
+                 "examples/federated_lm_embeddings_torch.py",
+                 "src/repro_torch/sharding/__init__.py", "src/repro_torch/sharding/context.py",
+                 "src/repro_torch/sharding/specs.py", "src/repro_torch/sharding/cores.py",
+                 "src/repro_torch/sharding/comm.py", "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/launch/workloads.py", "src/repro_torch/launch/dryrun.py",
+                 "src/repro_torch/utils/roofline.py", "src/repro_torch/utils/collectives.py"):
         assert want in names
     assert (REPO / "src/repro_torch/kernels/sparse_update/csrc/sparse_step.cu").is_file()
     assert (REPO / "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu").is_file()
