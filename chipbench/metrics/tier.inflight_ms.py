@@ -1,0 +1,12 @@
+"""Mean in-flight phase (launch end to collect start) of the requests
+served in the window, from their ``tier.request`` spans."""
+from chipbench import spans
+
+
+def read(ctx):
+    got = spans.recorded()
+    if not got:
+        return None
+    _, hi = spans.window(ctx, got)
+    return spans.mean_attr([s for s in spans.named(got, "tier.request") if s.end_ns <= hi],
+                           "inflight_ms")

@@ -125,6 +125,7 @@ from repro_torch.kge.engine import as_device, draw_epoch
 from repro_torch.kge.eval import best_threshold_accuracy, build_score_inputs, link_prediction
 from repro_torch.kge.models import score_triples
 from repro_torch.kge.trainer import KGETrainer
+from repro_torch.utils import tracing
 
 
 class NodeState(enum.Enum):
@@ -140,7 +141,14 @@ class NodeState(enum.Enum):
 @dataclass
 class FederationEvent:
     """One protocol action. ``seconds`` measures executed work (the device
-    is synchronised before the clock is read)."""
+    is synchronised before the clock is read). Under the serial engine it is
+    the entry's own time; under the batched engine the entries of a tick run
+    together, and every entry is given the whole batched tick's time (plus
+    its injected straggle). An entry's own time under batching is the
+    ``stream_ms`` of its ``tick.entry`` span, recorded while a profiler
+    session is active (``utils.tracing``): the time its segments took on its
+    stream, which counts the host's launch stalls inside them and waits
+    behind the other entries' streams besides its device time."""
 
     tick: int
     host: str
@@ -955,14 +963,19 @@ class FederationScheduler:
                                     bound=bound, execute=execute)
         for _ in range(max_ticks):
             self._tick += 1
-            plan = self.plan_tick(self_train=self_train)
-            try:
-                events = execute(plan)
-            except Exception:
-                self._unwind_plan(plan, {ev.host for ev in self.events if ev.tick == self._tick})
-                raise
-            self._stamp_events(plan, events, level=0)
-            self._sim_account_barrier(events)
+            with tracing.span("tick") as sp:
+                if sp:
+                    sp.set(tick=self._tick)
+                with tracing.span("tick.plan"):
+                    plan = self.plan_tick(self_train=self_train)
+                try:
+                    events = execute(plan)
+                except Exception:
+                    self._unwind_plan(plan,
+                                      {ev.host for ev in self.events if ev.tick == self._tick})
+                    raise
+                self._stamp_events(plan, events, level=0)
+                self._sim_account_barrier(events)
             if (
                 not any(ev.accepted for ev in events)
                 and all(not q for q in self.queue.values())

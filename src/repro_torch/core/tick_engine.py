@@ -47,6 +47,23 @@ tick (once per level under ``tick_sync="stream"``). On the CPU the same
 ``entry_graph`` runs eagerly, and the program cache still counts one
 program per signature, so dedup can be pinned there.
 
+**Time.** Every entry of a batched tick gets the whole tick's time as its
+``FederationEvent.seconds`` (plus its injected straggle): the entries run
+together, and the host cannot tell their shares apart without a sync of
+its own. While a profiler session records spans (``utils.tracing``) the
+engine times its stages (``tick.prepare``, ``tick.materialize``,
+``tick.issue`` with a ``tick.segment`` child per entry and segment,
+``tick.sync``, ``tick.post`` with a ``tick.entry`` child per entry), and
+on a card puts a pair of timing events on the entry's stream around each
+segment. After the tick's own sync each ``tick.segment`` span holds the
+milliseconds between its pair and each ``tick.entry`` span their sum over
+its segments (``stream_ms``): the entry's time on its stream, not its
+device time alone. The first event of a pair completes as soon as the
+stream reaches it, so the sum also counts the host's launch time inside a
+segment (under the profiler each graph replay blocks the host for tens of
+milliseconds) and the time the entry's kernels wait behind the other
+stream's.
+
 **Placement** (``kernels.dispatch.resolve_tick_placement``). ``single`` runs
 every entry on the scheduler's device. ``sharded`` groups entries by
 signature, orders each group by its owners' sticky home slots
@@ -94,6 +111,7 @@ from repro_torch.kge.engine import (
 )
 from repro_torch.kge.eval import side_counts_graph
 from repro_torch.kge.models import KGEModel, score_triples, virtual_pad_rows
+from repro_torch.utils import tracing
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -485,6 +503,20 @@ class _Run:
         self.i, self.prog, self.inputs = i, prog, inputs
         self.state: Tensors = dict(inputs)
         self.err: Optional[Exception] = None
+        #: (tick.segment span, start event, end event) of each timed segment
+        self.timed: List[Tuple] = []
+
+    def stream_ms(self) -> Optional[float]:
+        """The milliseconds between each timed segment's events (read after
+        the stream's sync), each also set on its segment's span."""
+        if not self.timed:
+            return None
+        total = 0.0
+        for sp, ev0, ev1 in self.timed:
+            ms = ev0.elapsed_time(ev1)
+            sp.set(stream_ms=ms)
+            total += ms
+        return total
 
 
 def default_placement_devices(device: torch.device) -> List[torch.device]:
@@ -677,47 +709,65 @@ class TickEngine:
             self.last["eager_segments"] += 1
         run.state.update(out)
 
+    def _issue(self, run: _Run, k: int) -> None:
+        """Segment ``k`` of an entry in a ``tick.segment`` span; while it
+        records on a card, between two timing events on the entry's stream."""
+        with tracing.span("tick.segment") as sp:
+            stream = run.prog.stream
+            if sp:
+                sp.set(entry=run.i, graph=run.prog.segments[k].graphable)
+            if not sp or stream is None:
+                self._segment(run, k)
+                return
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record(stream)
+            self._segment(run, k)
+            ev1.record(stream)
+            run.timed.append((sp, ev0, ev1))
+
     def _dispatch(self, runs: List[_Run]) -> None:
         """Issue every run's segments in waves, then block once per stream.
         A stream whose synchronisation fails re-runs its entries one at a
         time, so the failure is pinned on the entry that made it."""
-        for run in runs:
-            if run.prog.stream is not None:
-                run.prog.stream.wait_stream(torch.cuda.current_stream(run.prog.device))
-        depth = max((len(r.prog.segments) for r in runs), default=0)
-        for k in range(depth):
+        with tracing.span("tick.issue"):
             for run in runs:
-                if run.err is None and k < len(run.prog.segments):
-                    try:
-                        self._segment(run, k)
-                    except GraphCaptureError:
-                        raise
-                    except Exception as ex:  # noqa: BLE001 — isolate, don't abort
-                        run.err = ex
-        groups: Dict[int, List[_Run]] = {}
-        for run in runs:
-            if run.prog.stream is not None:
-                groups.setdefault(id(run.prog.stream), []).append(run)
-        for group in groups.values():
-            try:
-                group[0].prog.stream.synchronize()
-            except Exception:  # noqa: BLE001 — re-run the group one by one
-                for run in group:
-                    run.state, run.err = dict(run.inputs), None
-                    try:
-                        for k in range(len(run.prog.segments)):
-                            self._segment(run, k)
-                        run.prog.stream.synchronize()
-                    except GraphCaptureError:
-                        raise
-                    except Exception as ex:  # noqa: BLE001
-                        run.err = ex
-        for run in runs:  # results are read on the default stream from here
-            if run.prog.stream is not None and run.err is None:
-                cur = torch.cuda.current_stream(run.prog.device)
-                for key, t in run.state.items():
-                    if _matches(key, _FINAL):
-                        t.record_stream(cur)
+                if run.prog.stream is not None:
+                    run.prog.stream.wait_stream(torch.cuda.current_stream(run.prog.device))
+            depth = max((len(r.prog.segments) for r in runs), default=0)
+            for k in range(depth):
+                for run in runs:
+                    if run.err is None and k < len(run.prog.segments):
+                        try:
+                            self._issue(run, k)
+                        except GraphCaptureError:
+                            raise
+                        except Exception as ex:  # noqa: BLE001 — isolate, don't abort
+                            run.err = ex
+        with tracing.span("tick.sync"):
+            groups: Dict[int, List[_Run]] = {}
+            for run in runs:
+                if run.prog.stream is not None:
+                    groups.setdefault(id(run.prog.stream), []).append(run)
+            for group in groups.values():
+                try:
+                    group[0].prog.stream.synchronize()
+                except Exception:  # noqa: BLE001 — re-run the group one by one
+                    for run in group:
+                        run.state, run.err, run.timed = dict(run.inputs), None, []
+                        try:
+                            for k in range(len(run.prog.segments)):
+                                self._issue(run, k)
+                            run.prog.stream.synchronize()
+                        except GraphCaptureError:
+                            raise
+                        except Exception as ex:  # noqa: BLE001
+                            run.err = ex
+            for run in runs:  # results are read on the default stream from here
+                if run.prog.stream is not None and run.err is None:
+                    cur = torch.cuda.current_stream(run.prog.device)
+                    for key, t in run.state.items():
+                        if _matches(key, _FINAL):
+                            t.record_stream(cur)
 
     def _devices(self, specs, protos, owners, placement: str) -> List[Optional[torch.device]]:
         """Each entry's device: the scheduler's under ``single``; under
@@ -788,83 +838,85 @@ class TickEngine:
         #: fault kinds of entries isolated before they ran, applied in order
         pre_failed: List[Optional[str]] = [None] * n
         metric = self._metric_kind()
-        for i, e in enumerate(entries):
-            tr = sched.trainers[e.host]
-            fault = faults.draw(tick, e.host, e.client) if faults is not None else None
-            atk = (adversary.draw(tick, e.host, e.client)
-                   if adversary is not None and e.kind == "ppat" else None)
-            entry_faults[i], entry_attacks[i] = fault, atk
-            view = e.client_view
-            if e.kind == "ppat":
-                pair = self._pair_info(e.client, e.host)
-                if view is None:
-                    view = dict(sched.trainers[e.client].params)
-                if atk is not None:
-                    # every planned view is tampered, even one whose entry
-                    # then dies, so the replay cache advances as in the
-                    # serial loop
-                    view = adversary.tamper_view(view, atk, tick, e.host, e.client,
-                                                 rows=pair["screen_idx"])
-            if fault is not None and fault.kind in ("crash", "drop"):
-                pre_failed[i] = fault.kind
-                continue
-            if e.kind == "ppat":
-                if fault is not None and fault.kind == "corrupt":
-                    view = faults.corrupt_view(view, fault, tick, e.host)
-                if faults is not None:
-                    try:
-                        sched.screen_incoming(e.host, e.client, view, bound=faults.norm_bound)
-                    except CorruptEmbeddingError:
-                        pre_failed[i] = "corrupt"
-                        continue
-            if sched.state[e.host] is not NodeState.QUARANTINED:
-                # a mid-tick quarantine (blamed as an earlier entry's
-                # client) survives its already-planned entry
-                sched.state[e.host] = NodeState.BUSY
-            dev_of_tables = tr.params["ent"].device
-            impl = resolve_train_impl(None, tr.model.family, dev_of_tables)
-            inp: Tensors = _flat(dict(tr.params), "params/")
-            if e.kind == "ppat":
-                info = pair
-                init, draws = (e.ppat_draws if e.ppat_draws is not None
-                               else sched._draw_ppat(e.host, e.client))
-                inp.update(_flat(init, "init/"))
-                inp.update({"ppat/idx": draws.idx, "ppat/ridx": draws.ridx,
-                            "ppat/noise": draws.noise, "client_ent": view["ent"]})
-                if "rel_c" in pair["arrays"] or "neigh" in pair["arrays"]:
-                    inp["client_rel"] = view["rel"]
-            else:
-                info = self._own_info(e.host)
-            for ep, d in enumerate(self._train_draws(e.host, sched.update_epochs, info)):
-                for name, t in zip(("perm", "corrupt_head", "rand_ent"), d):
-                    inp[f"train/{ep}/{name}"] = (
-                        t if torch.is_tensor(t) else torch.from_numpy(np.array(t)))
-            inp["_res"] = info  # resident arrays, resolved per device below
-            if metric != "none":
-                inp["_score"] = self._score_info(e.host)
-            specs[i] = EntrySpec(
-                kind=e.kind, model=tr.model, epochs=sched.update_epochs, batch=info["batch"],
-                train_impl=impl, renorm=info["renorm"], lr=self._misc_info(e.host)["lr"],
-                cfg=sched.ppat_cfg if e.kind == "ppat" else None,
-                aggregation=sched.aggregation, refine=sched.procrustes_refine, score=metric,
-                robust=sched.robust_agg if e.kind == "ppat" else "none",
-                cos=e.kind == "ppat" and sched.cos_screen is not None)
-            protos[i] = inp
+        with tracing.span("tick.prepare"):
+            for i, e in enumerate(entries):
+                tr = sched.trainers[e.host]
+                fault = faults.draw(tick, e.host, e.client) if faults is not None else None
+                atk = (adversary.draw(tick, e.host, e.client)
+                       if adversary is not None and e.kind == "ppat" else None)
+                entry_faults[i], entry_attacks[i] = fault, atk
+                view = e.client_view
+                if e.kind == "ppat":
+                    pair = self._pair_info(e.client, e.host)
+                    if view is None:
+                        view = dict(sched.trainers[e.client].params)
+                    if atk is not None:
+                        # every planned view is tampered, even one whose entry
+                        # then dies, so the replay cache advances as in the
+                        # serial loop
+                        view = adversary.tamper_view(view, atk, tick, e.host, e.client,
+                                                     rows=pair["screen_idx"])
+                if fault is not None and fault.kind in ("crash", "drop"):
+                    pre_failed[i] = fault.kind
+                    continue
+                if e.kind == "ppat":
+                    if fault is not None and fault.kind == "corrupt":
+                        view = faults.corrupt_view(view, fault, tick, e.host)
+                    if faults is not None:
+                        try:
+                            sched.screen_incoming(e.host, e.client, view, bound=faults.norm_bound)
+                        except CorruptEmbeddingError:
+                            pre_failed[i] = "corrupt"
+                            continue
+                if sched.state[e.host] is not NodeState.QUARANTINED:
+                    # a mid-tick quarantine (blamed as an earlier entry's
+                    # client) survives its already-planned entry
+                    sched.state[e.host] = NodeState.BUSY
+                dev_of_tables = tr.params["ent"].device
+                impl = resolve_train_impl(None, tr.model.family, dev_of_tables)
+                inp: Tensors = _flat(dict(tr.params), "params/")
+                if e.kind == "ppat":
+                    info = pair
+                    init, draws = (e.ppat_draws if e.ppat_draws is not None
+                                   else sched._draw_ppat(e.host, e.client))
+                    inp.update(_flat(init, "init/"))
+                    inp.update({"ppat/idx": draws.idx, "ppat/ridx": draws.ridx,
+                                "ppat/noise": draws.noise, "client_ent": view["ent"]})
+                    if "rel_c" in pair["arrays"] or "neigh" in pair["arrays"]:
+                        inp["client_rel"] = view["rel"]
+                else:
+                    info = self._own_info(e.host)
+                for ep, d in enumerate(self._train_draws(e.host, sched.update_epochs, info)):
+                    for name, t in zip(("perm", "corrupt_head", "rand_ent"), d):
+                        inp[f"train/{ep}/{name}"] = (
+                            t if torch.is_tensor(t) else torch.from_numpy(np.array(t)))
+                inp["_res"] = info  # resident arrays, resolved per device below
+                if metric != "none":
+                    inp["_score"] = self._score_info(e.host)
+                specs[i] = EntrySpec(
+                    kind=e.kind, model=tr.model, epochs=sched.update_epochs, batch=info["batch"],
+                    train_impl=impl, renorm=info["renorm"], lr=self._misc_info(e.host)["lr"],
+                    cfg=sched.ppat_cfg if e.kind == "ppat" else None,
+                    aggregation=sched.aggregation, refine=sched.procrustes_refine, score=metric,
+                    robust=sched.robust_agg if e.kind == "ppat" else "none",
+                    cos=e.kind == "ppat" and sched.cos_screen is not None)
+                protos[i] = inp
 
-        shapes = [None if p is None else self._shape_view(p) for p in protos]
-        devs = self._devices(specs, shapes, owners, placement)
         runs: List[_Run] = []
         errs: List[Optional[Exception]] = [None] * n
-        for i in range(n):
-            if specs[i] is None:
-                continue
-            try:
-                inputs = self._materialize(protos[i], devs[i])
-                run = _Run(i, _program(specs[i], inputs, devs[i]), inputs)
-            except Exception as ex:  # noqa: BLE001 — isolate, don't abort
-                errs[i] = ex
-                continue
-            runs.append(run)
+        with tracing.span("tick.materialize"):
+            shapes = [None if p is None else self._shape_view(p) for p in protos]
+            devs = self._devices(specs, shapes, owners, placement)
+            for i in range(n):
+                if specs[i] is None:
+                    continue
+                try:
+                    inputs = self._materialize(protos[i], devs[i])
+                    run = _Run(i, _program(specs[i], inputs, devs[i]), inputs)
+                except Exception as ex:  # noqa: BLE001 — isolate, don't abort
+                    errs[i] = ex
+                    continue
+                runs.append(run)
         try:
             self._dispatch(runs)
         except GraphCaptureError:
@@ -872,87 +924,98 @@ class TickEngine:
                 if specs[i] is not None and sched.state[entries[i].host] is NodeState.BUSY:
                     sched.state[entries[i].host] = NodeState.READY
             raise
-        outs: List[Optional[Tensors]] = [None] * n
-        for run in runs:
-            if run.err is not None:
-                errs[run.i] = run.err
-            else:
-                outs[run.i] = {k: v for k, v in run.state.items() if _matches(k, _FINAL)}
-        self.last["entries"] = len(runs)
-        for k, v in self.last.items():
-            self.stats[k] += v
-        seconds = time.perf_counter() - t0
+        with tracing.span("tick.post"):
+            outs: List[Optional[Tensors]] = [None] * n
+            for run in runs:
+                if run.err is not None:
+                    errs[run.i] = run.err
+                else:
+                    outs[run.i] = {k: v for k, v in run.state.items() if _matches(k, _FINAL)}
+            self.last["entries"] = len(runs)
+            for k, v in self.last.items():
+                self.stats[k] += v
+            seconds = time.perf_counter() - t0
+            timed = {run.i: run for run in runs} if tracing.recording() else {}
 
-        events = []
-        for i, e in enumerate(entries):
-            client = e.client if e.kind == "ppat" else None
-            if pre_failed[i] is not None or outs[i] is None:
-                # isolated before it ran, or an uninjected exception while it
-                # ran ("error", blamed on the host like a crash)
-                sched._entry_failed(e.host, client, pre_failed[i] or "error")
-                events.append(sched.events[-1])
-                continue
-            spec, out = specs[i], outs[i]
-            tr = sched.trainers[e.host]
-            params = _sub(out, "out/")
-            if residency == "normalize":
-                params = {k: v.to(sched.device) for k, v in params.items()}
-            epsilon = float("nan")
-            if e.kind == "ppat":
-                acct = MomentsAccountant(sched.ppat_cfg.lam, sched.ppat_cfg.delta)
-                acct.update(out["n0s"].cpu().numpy().ravel(), out["n1s"].cpu().numpy().ravel())
-                epsilon = acct.epsilon()
-                sched.epsilons.append(epsilon)
-                sched.accountant.merge(acct)  # federation-lifetime ε
-            before = sched.best_score[e.host]
-            if spec.score == "accuracy":
-                _, after = best_threshold_accuracy(out["score/pos"].cpu().numpy(),
-                                                   out["score/neg"].cpu().numpy(),
-                                                   max_candidates=256)
-            elif spec.score == "hit10":
-                ntest = self._score_info(e.host)["ntest"]
-                ranks = np.empty(2 * ntest, dtype=np.int64)
-                for ci, i0 in enumerate(range(0, ntest, spec.lp_batch)):
-                    ct = out[f"score/{ci}/tail"].cpu().numpy()
-                    ch = out[f"score/{ci}/head"].cpu().numpy()
-                    ranks[2 * i0: 2 * (i0 + len(ct)): 2] = ct + 1
-                    ranks[2 * i0 + 1: 2 * (i0 + len(ct)): 2] = ch + 1
-                after = _metrics(ranks)["hit@10"]
-            else:  # a custom score_fn scores the candidate tables on the host
-                tr.params = dict(params)
-                after = sched.score_fn(e.host)
-            fault = entry_faults[i]
-            elapsed = seconds + (fault.delay if fault is not None and fault.kind == "straggle"
-                                 else 0.0)
-            straggled = deadline is not None and elapsed > deadline
-            mean_cos = float(out["mean_cos"]) if "mean_cos" in out else None
-            poisoned = (mean_cos is not None and not straggled
-                        and mean_cos < sched._cos_tau(e.client))
-            accepted = after > before and not straggled and not poisoned
-            if accepted:  # Backtrack (Alg. 1 l. 17)
-                tr.params = dict(params)
-                sched.best_score[e.host] = after
-                sched.best_snapshot[e.host] = tr.snapshot()
-            else:
-                tr.restore(sched.best_snapshot[e.host])
-            if sched.state[e.host] is NodeState.BUSY:
-                sched.state[e.host] = NodeState.READY
-            atk = entry_attacks[i]
-            fault_kind = "straggle" if straggled else ("poison" if poisoned else None)
-            ev = FederationEvent(tick, e.host, client, e.kind, before, after, accepted,
-                                 epsilon=epsilon, seconds=elapsed, fault=fault_kind,
-                                 attack=atk.kind if atk is not None else None)
-            sched.events.append(ev)
-            events.append(ev)
-            if accepted:
-                sched.broadcast(e.host)
-                if e.kind == "ppat":
-                    sched._rep_recover(e.host, e.client)
-                sched._notify_accept(e.host)
-            if fault_kind is not None:
-                sched._entry_failed(e.host, client, fault_kind, emit=False)
-            else:
-                sched._note_entry_ok(e.host, client)
+            events = []
+            for i, e in enumerate(entries):
+                client = e.client if e.kind == "ppat" else None
+                with tracing.span("tick.entry") as sp:
+                    if sp:
+                        sp.set(entry=i, host=e.host, client=client,
+                               stream_ms=timed[i].stream_ms() if i in timed else None)
+                    if pre_failed[i] is not None or outs[i] is None:
+                        # isolated before it ran, or an uninjected exception
+                        # while it ran ("error", blamed on the host like a crash)
+                        sched._entry_failed(e.host, client, pre_failed[i] or "error")
+                        events.append(sched.events[-1])
+                        if sp:
+                            sp.set(accepted=False, fault=sched.events[-1].fault)
+                        continue
+                    spec, out = specs[i], outs[i]
+                    tr = sched.trainers[e.host]
+                    params = _sub(out, "out/")
+                    if residency == "normalize":
+                        params = {k: v.to(sched.device) for k, v in params.items()}
+                    epsilon = float("nan")
+                    if e.kind == "ppat":
+                        acct = MomentsAccountant(sched.ppat_cfg.lam, sched.ppat_cfg.delta)
+                        acct.update(out["n0s"].cpu().numpy().ravel(),
+                                    out["n1s"].cpu().numpy().ravel())
+                        epsilon = acct.epsilon()
+                        sched.epsilons.append(epsilon)
+                        sched.accountant.merge(acct)  # federation-lifetime ε
+                    before = sched.best_score[e.host]
+                    if spec.score == "accuracy":
+                        _, after = best_threshold_accuracy(out["score/pos"].cpu().numpy(),
+                                                           out["score/neg"].cpu().numpy(),
+                                                           max_candidates=256)
+                    elif spec.score == "hit10":
+                        ntest = self._score_info(e.host)["ntest"]
+                        ranks = np.empty(2 * ntest, dtype=np.int64)
+                        for ci, i0 in enumerate(range(0, ntest, spec.lp_batch)):
+                            ct = out[f"score/{ci}/tail"].cpu().numpy()
+                            ch = out[f"score/{ci}/head"].cpu().numpy()
+                            ranks[2 * i0: 2 * (i0 + len(ct)): 2] = ct + 1
+                            ranks[2 * i0 + 1: 2 * (i0 + len(ct)): 2] = ch + 1
+                        after = _metrics(ranks)["hit@10"]
+                    else:  # a custom score_fn scores the candidate tables on the host
+                        tr.params = dict(params)
+                        after = sched.score_fn(e.host)
+                    fault = entry_faults[i]
+                    elapsed = seconds + (fault.delay if fault is not None
+                                         and fault.kind == "straggle" else 0.0)
+                    straggled = deadline is not None and elapsed > deadline
+                    mean_cos = float(out["mean_cos"]) if "mean_cos" in out else None
+                    poisoned = (mean_cos is not None and not straggled
+                                and mean_cos < sched._cos_tau(e.client))
+                    accepted = after > before and not straggled and not poisoned
+                    if accepted:  # Backtrack (Alg. 1 l. 17)
+                        tr.params = dict(params)
+                        sched.best_score[e.host] = after
+                        sched.best_snapshot[e.host] = tr.snapshot()
+                    else:
+                        tr.restore(sched.best_snapshot[e.host])
+                    if sched.state[e.host] is NodeState.BUSY:
+                        sched.state[e.host] = NodeState.READY
+                    atk = entry_attacks[i]
+                    fault_kind = "straggle" if straggled else ("poison" if poisoned else None)
+                    ev = FederationEvent(tick, e.host, client, e.kind, before, after, accepted,
+                                         epsilon=epsilon, seconds=elapsed, fault=fault_kind,
+                                         attack=atk.kind if atk is not None else None)
+                    sched.events.append(ev)
+                    events.append(ev)
+                    if accepted:
+                        sched.broadcast(e.host)
+                        if e.kind == "ppat":
+                            sched._rep_recover(e.host, e.client)
+                        sched._notify_accept(e.host)
+                    if fault_kind is not None:
+                        sched._entry_failed(e.host, client, fault_kind, emit=False)
+                    else:
+                        sched._note_entry_ok(e.host, client)
+                    if sp:
+                        sp.set(accepted=accepted, fault=fault_kind)
         return events
 
     @staticmethod

@@ -37,6 +37,20 @@ the version the batch is pinned to. ``warm_buckets=`` runs each configured
 query bucket once per replica at publish, so the kernels are built and
 loaded before the first real batch.
 
+**Spans** — while a profiler session records them (``utils.tracing``) the
+tier times each batch's ``tier.assemble`` (coalesce, revalidate,
+concatenate, filter rows, pad), ``tier.launch`` (replica pick, copies to
+the device, kernel enqueue, event record) and ``tier.collect`` (the copy
+to the host and the scatter), all carrying the batch's ``seq``, and one
+``tier.request`` span per served request from submit to finish. The
+collect's ``tier.copy`` child holds the copy alone: it is queued on the
+stream behind any batch launched since, so it holds the host until that
+batch is done too. A request's four phases —
+``queue_ms`` (submit to coalesce), ``host_ms`` (coalesce to launch end),
+``inflight_ms`` (launch end to collect start) and ``collect_ms`` (collect
+start to finish) — are differences of its own stamps, so they sum to its
+``latency``.
+
 ``serve_impl="direct"`` (``REPRO_SERVE_IMPL``) disables coalescing.
 ``REPRO_SERVE_REPLICAS`` sizes the replica ring; ``serve_faults=`` /
 ``REPRO_SERVE_FAULTS`` arm the seeded chaos layer (off by default).
@@ -62,6 +76,7 @@ from repro_torch.kernels.dispatch import (
 from repro_torch.kge.eval import side_counts_dispatch
 from repro_torch.serving.engine import topk_tails_dispatch
 from repro_torch.serving.tables import FilterPack, TableVersion, check_id_range
+from repro_torch.utils import tracing
 
 
 def _pow2_at_least(n: int, floor: int = 1) -> int:
@@ -150,6 +165,9 @@ class _InFlight:
     seq: int = 0                    # tier-wide launch sequence number
     attempts: int = 0               # re-dispatches already consumed
     fault: Optional[ServeFault] = None
+    #: when the batch's requests left the queue (``_coalesce``'s clock read)
+    coalesced_at: float = 0.0
+    #: when its launch was enqueued
     dispatched_at: float = 0.0
     hedge: Optional["_InFlight"] = None
     #: recorded on the replica's stream after the launch; None on the CPU
@@ -409,19 +427,20 @@ class KGEServingTier:
     def _expired(req: QueryRequest, now: float) -> bool:
         return req.deadline is not None and now - req.submitted_at > req.deadline
 
-    def _coalesce(self) -> List[QueryRequest]:
+    def _coalesce(self) -> Tuple[List[QueryRequest], float]:
         """Pop the FIFO head's batchable prefix: same kind (and top-k
         bucket), up to ``max_batch`` rows; expired requests are shed as they
-        surface. ``direct`` mode takes one request."""
+        surface. ``direct`` mode takes one request. Returns the requests and
+        the time they left the queue."""
         now = time.perf_counter()
         while self.queue and self._expired(self.queue[0], now):
             self._shed(self.queue.popleft(), now)
         if not self.queue:
-            return []
+            return [], now
         head = self.queue[0]
         take = [self.queue.popleft()]
         if self.serve_impl == "direct":
-            return take
+            return take, now
         rows = len(head.h)
         kb = _pow2_at_least(head.k) if head.kind == "topk" else 0
         while self.queue and rows < self.max_batch:
@@ -437,7 +456,7 @@ class KGEServingTier:
                 break
             take.append(self.queue.popleft())
             rows += len(nxt.h)
-        return take
+        return take, now
 
     def _pad(self, arrs: List[np.ndarray], nq: int) -> List[np.ndarray]:
         """Pad the batch to its pow-2 bucket by repeating row 0; padded rows
@@ -523,7 +542,10 @@ class KGEServingTier:
                 ok.append(q)
         return ok
 
-    def _dispatch(self, reqs: List[QueryRequest]) -> int:
+    def _dispatch(self, reqs: List[QueryRequest], coalesced_at: float,
+                  assemble_at: Optional[float] = None) -> int:
+        """Assemble and launch one batch; ``assemble_at`` (taken only while
+        spans are recorded) starts its ``tier.assemble`` span."""
         tv = self._active  # ONE read: the batch is pinned to this version
         reqs = self._revalidate(reqs, tv)
         if not reqs:
@@ -548,7 +570,10 @@ class KGEServingTier:
             filt = self.filters.rows_for(h, r)
             host_in = tuple(self._pad([h, r, filt], nq))
         self.stats["batches"] += 1
-        self._launch(kind, host_in, segs, nq, tv, kb)
+        if assemble_at is not None:
+            tracing.record("tier.assemble", assemble_at, time.perf_counter(), seq=self._seq,
+                           rows=nq, requests=len(reqs))
+        self._launch(kind, host_in, segs, nq, tv, kb, coalesced_at=coalesced_at)
         return nq
 
     def _run(self, kind: str, host_in: Tuple, ptab, device: torch.device,
@@ -566,12 +591,13 @@ class KGEServingTier:
                                    block_e=self.block_e)
 
     def _launch(self, kind: str, host_in: Tuple, segs, nq: int,
-                tv: TableVersion, kb: int, *, attempts: int = 0,
+                tv: TableVersion, kb: int, *, coalesced_at: float, attempts: int = 0,
                 exclude: Tuple[Replica, ...] = (),
                 hedge_of: Optional[_InFlight] = None) -> _InFlight:
         """One device dispatch of an assembled batch (primary, retry or
         hedge — each takes a fresh launch sequence number, so the fault
         plan draws independently per attempt)."""
+        launch_at = time.perf_counter() if tracing.recording() else None
         rep = self._pick_replica(exclude=exclude)
         seq = self._seq
         self._seq += 1
@@ -589,9 +615,13 @@ class KGEServingTier:
         rep.dispatched += 1
         fl = _InFlight(
             kind, out, segs, nq, tv, rep, host_in=host_in, kb=kb, seq=seq,
-            attempts=attempts, fault=fault, dispatched_at=time.perf_counter(),
-            event=event,
+            attempts=attempts, fault=fault, coalesced_at=coalesced_at,
+            dispatched_at=time.perf_counter(), event=event,
         )
+        if launch_at is not None:
+            tracing.record("tier.launch", launch_at, fl.dispatched_at, seq=seq, kind=kind,
+                           rows=len(host_in[0]), filter_width=host_in[-1].shape[1],
+                           replica=rep.slot)
         if hedge_of is None:
             self.inflight.append(fl)
         return fl
@@ -610,7 +640,7 @@ class KGEServingTier:
         if all(rp is b.replica for rp in self.replicas):
             return  # no second replica to hedge onto
         b.hedge = self._launch(
-            b.kind, b.host_in, b.segs, b.nq, b.tv, b.kb,
+            b.kind, b.host_in, b.segs, b.nq, b.tv, b.kb, coalesced_at=b.coalesced_at,
             attempts=b.attempts, exclude=(b.replica,), hedge_of=b,
         )
         self.stats["hedged"] += 1
@@ -645,7 +675,8 @@ class KGEServingTier:
         armed. Raises on anything unservable."""
         if src.fault is not None and src.fault.kind == "crash":
             raise ServeFaultError("crash", src.seq, src.replica.slot)
-        host = [x.cpu().numpy() for x in src.out]
+        with tracing.span("tier.copy"):
+            host = [x.cpu().numpy() for x in src.out]
         if src.fault is not None and src.fault.kind == "poison":
             host = self._poison(kind, host, src.fault)
         if self.fault_plan is not None and self._output_bad(kind, host):
@@ -679,7 +710,8 @@ class KGEServingTier:
             if b.attempts < self.retry_limit:
                 self.stats["retried"] += 1
                 self._launch(b.kind, b.host_in, b.segs, b.nq, b.tv, b.kb,
-                             attempts=b.attempts + 1, exclude=failed)
+                             coalesced_at=b.coalesced_at, attempts=b.attempts + 1,
+                             exclude=failed)
                 return
             now = time.perf_counter()
             for q, _, _ in b.segs:
@@ -718,6 +750,23 @@ class KGEServingTier:
     def _batch_ready(self, b: _InFlight) -> bool:
         return b.ready() or (b.hedge is not None and b.hedge.ready())
 
+    def _finish_traced(self, b: _InFlight) -> None:
+        """``_finish_batch`` in a ``tier.collect`` span, then a
+        ``tier.request`` span for each request it served, its phases cut at
+        its own stamps and at the collect's start."""
+        with tracing.span("tier.collect", seq=b.seq, kind=b.kind) as sp:
+            self._finish_batch(b)
+        collect_at = sp.start
+        for q, _, _ in b.segs:
+            if q.state != "served":
+                continue
+            tracing.record(
+                "tier.request", q.submitted_at, q.finished_at, rid=q.rid, seq=b.seq,
+                queue_ms=1e3 * (b.coalesced_at - q.submitted_at),
+                host_ms=1e3 * (b.dispatched_at - b.coalesced_at),
+                inflight_ms=1e3 * (collect_at - b.dispatched_at),
+                collect_ms=1e3 * (q.finished_at - collect_at))
+
     def _reap(self, *, block: bool = False) -> int:
         """Collect completed batches; with ``block`` wait for the oldest
         (polling, so simulated straggles are honored and hedging keeps
@@ -734,7 +783,10 @@ class KGEServingTier:
                 continue
             block = False
             b = self.inflight.popleft()
-            self._finish_batch(b)
+            if tracing.recording():
+                self._finish_traced(b)
+            else:
+                self._finish_batch(b)
             self._reap_zombies()
             done += len(b.segs)
         return done
@@ -750,10 +802,11 @@ class KGEServingTier:
             return 0
         while len(self.inflight) >= self.max_inflight:
             self._reap(block=True)
-        reqs = self._coalesce()
+        assemble_at = time.perf_counter() if tracing.recording() else None
+        reqs, coalesced_at = self._coalesce()
         if not reqs:
             return 0
-        return self._dispatch(reqs)
+        return self._dispatch(reqs, coalesced_at, assemble_at)
 
     def run_until_drained(self, *, max_steps: int = 1_000_000) -> None:
         for _ in range(max_steps):
