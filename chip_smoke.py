@@ -24,8 +24,9 @@ MoE over gloo ranks sharing the card.
 
 Phases (every failed check ends the run with a non-zero exit):
 
-1. the card (``nvidia-smi``: name, power limit), then the six kernel
-   libraries (``triple_score``: pairwise scores and fused ranks;
+1. the card (``nvidia-smi``: name, power limit), then the seven kernel
+   libraries (``triple_score``: pairwise scores, fused ranks and the fused
+   top-k;
    ``sparse_update``: the SGD step; ``csls``: the cosine matrix;
    ``flash_attention``; ``ssd_scan``: the SSD chunks) built from
    the ``csrc`` directories under
@@ -38,7 +39,10 @@ Phases (every failed check ends the run with a non-zero exit):
    its 2d-wide table, RotatE cl1), E = 50,000, d = 100, with a ragged B and E
    and filter widths 1 and 33. Pairwise scores agree within atol 1e-4 /
    rtol 1e-5; rank counts differ only by near-ties (entities whose plain
-   score lies within 1e-5·(1+|gold|) of gold);
+   score lies within 1e-5·(1+|gold|) of gold); the fused top-k (k 16) is
+   bit-equal to the blockwise scan over the pairwise kernel's scores, and
+   its scores agree with its plain version within atol 1e-4 / rtol 1e-5,
+   its ids but at near-ties;
 3. the main path: TransE L1, dim 100 (the trainer's default width) at the
    paper's largest KG, Dbpedia (E = 491,078, R = 14,085, 1,373,644 known
    triples drawn uniformly from ``--seed``), served by ``KGEServingTier`` on
@@ -57,7 +61,10 @@ Phases (every failed check ends the run with a non-zero exit):
    ``score_ops``); then the host-clock time of one 64-row rank and top-k
    request, a ``torch.profiler`` window over one top-k request (host time
    by operator), and a trace of the tier draining a burst: device time by
-   kernel and the device's idle share;
+   kernel and the device's idle share. The fused top-k (k 16, the tier's
+   bucket for k 10) is held bit for bit against the chunked scan it
+   replaced and timed beside it, at B = 64 and at the tier's 2,048-row
+   bucket, against the bound of its scoring;
 5. the sparse SGD kernel against its plain version on the card, for l1, l2
    and dot, at the training shape (E = 491,078, R = 14,085, d = 100,
    B = 100) and a ragged one (B = 37, d = 33), on batches built to break a
@@ -352,9 +359,11 @@ REPLACES = {
     "cosine_matrix": "src/repro/kernels/csls/csls.py:39",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:107",
     "ssd_chunks": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
+    "pairwise_topk": "src/repro/kernels/triple_score/triple_score.py:83, with the top-k "
+                     "merge of src/repro/serving/engine.py",
 }
 KERNELS = ("pairwise_scores", "fused_ranks", "sparse_sgd_step", "cosine_matrix",
-           "flash_attention", "ssd_chunks")
+           "flash_attention", "ssd_chunks", "pairwise_topk")
 SOURCES = {
     "pairwise_scores": "src/repro_torch/kernels/triple_score/csrc/pairwise_scores.cu",
     "fused_ranks": "src/repro_torch/kernels/triple_score/csrc/fused_ranks.cu",
@@ -362,11 +371,14 @@ SOURCES = {
     "cosine_matrix": "src/repro_torch/kernels/csls/csrc/cosine_matrix.cu",
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "ssd_chunks": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunks.cu",
+    "pairwise_topk": "src/repro_torch/kernels/triple_score/csrc/pairwise_topk.cu",
 }
 TRAIN_BATCH = 100    # ``KGETrainer``'s default batch
 TRAIN_LR = 0.5       # ``KGETrainer``'s default learning rate
 MAX_TEST = 2_000     # link prediction's default test slice
 STEP_TRAJECTORY = 64  # consecutive steps held against the plain version
+TOPK_K = 16          # the tier's top-k bucket for the benchmark's k = 10
+TIER_BUCKET = 2048   # the benchmark tier's largest batch bucket
 #: Yago's size in the paper's Table 2, and the Yago–Dbpedia alignment, the
 #: largest pair of Table 3 (``kge/data.py::PAPER_KG_STATS``, ``PAPER_ALIGNMENTS``)
 YAGO = dict(entities=286_389, relations=37, triples=1_824_322)
@@ -505,10 +517,24 @@ def check_ranks(torch, counts, plain_counts, plain_scores, gold, what):
     return int((diff > 0).sum()), int(diff.max()) if diff.numel() else 0
 
 
+def check_topk(torch, vals, ids, plain_vals, plain_ids, what):
+    """A fused top-k against its plain version: scores within atol 1e-4 /
+    rtol 1e-5, ids equal but where the two scores at the place lie within
+    1e-5·(1+|s|). Returns the largest score error and the rows that differ."""
+    torch.testing.assert_close(vals, plain_vals, atol=1e-4, rtol=1e-5,
+                               msg=lambda m: f"{what}: top-k scores: {m}")
+    gap = torch.where(torch.isfinite(plain_vals), (vals - plain_vals).abs(),
+                      torch.zeros_like(vals))
+    differ = ids != plain_ids
+    check(bool((gap[differ] <= 1e-5 * (1 + plain_vals[differ].abs())).all()),
+          f"{what}: top-k ids differ beyond near-ties")
+    return float(gap.max()) if gap.numel() else 0.0, int(differ.any(1).sum())
+
+
 # ------------------------------------------------------------ phase 2
 def kernel_vs_plain(torch, ops, models, dev, seed, e_full):
     """Each kernel against its plain version on the card, every mode."""
-    worst = {"pairwise_scores": 0.0, "fused_ranks": 0}
+    worst = {"pairwise_scores": 0.0, "fused_ranks": 0, "pairwise_topk": 0.0}
     cases = [(64, e_full, 1), (61, e_full - 37, 33)]
     for label, (family, norm_ord) in MODE_FAMILIES.items():
         for b, e, f in cases:
@@ -533,11 +559,21 @@ def kernel_vs_plain(torch, ops, models, dev, seed, e_full):
             cp = ops.fused_ranks_plain(q, table, gold, filt, mode, block_e=4096)
             torch.cuda.synchronize()
             ndiff, dmax = check_ranks(torch, c, cp, p, gold, f"{label} B={b} E={e} F={f}")
+            vals, ids = ops.pairwise_topk(q, table, filt, k=TOPK_K, mode=mode)
+            sv, si = ops.topk_scan(lambda c0, c1: s[:, c0:c1], b, e, filt, k=TOPK_K,
+                                   chunk=4096, device=dev)
+            check(torch.equal(vals, sv) and torch.equal(ids, si),
+                  f"{label} B={b} E={e}: the fused top-k is not the scan's over its scores")
+            terr, tdiff = check_topk(torch, vals, ids, *ops.pairwise_topk_plain(
+                q, table, filt, TOPK_K, mode, block_e=4096), f"{label} B={b} E={e} F={f}")
             worst["pairwise_scores"] = max(worst["pairwise_scores"], err)
             worst["fused_ranks"] = max(worst["fused_ranks"], dmax)
+            worst["pairwise_topk"] = max(worst["pairwise_topk"], terr)
             log(f"check {label:5s} ({family}, mode {mode}, width {table.shape[1]}) "
                 f"B={b} E={e} F={f}: pairwise max|err|={err:.3g} ok; "
-                f"rank counts differ on {ndiff}/{b} queries, all within near-ties")
+                f"rank counts differ on {ndiff}/{b} queries, all within near-ties; top-k "
+                f"bit-equal to the scan, max|err|={terr:.3g}, ids differ on {tdiff}/{b} "
+                f"rows, all at near-ties")
     return worst
 
 
@@ -793,6 +829,50 @@ def score_kernel_times(torch, ops, q, table, gold, filt, mode, chunk, card):
     return out
 
 
+def topk_times(torch, ops, engine, q, table, filt, mode, k, card, *, plain=True):
+    """The fused top-k kernel at one batch: its output held bit for bit
+    against the chunked scan over the pairwise kernel (the path it replaced:
+    ``CUDA_TOPK_CHUNK``-row launches, masks, keys and ``torch.topk``) and,
+    with ``plain``, against its plain version; then kernel, scan and plain
+    version timed beside the least time of the scoring."""
+    b, d = q.shape
+    e = table.shape[0]
+
+    def fused():
+        return ops.pairwise_topk(q, table, filt, k=k, mode=mode)
+
+    def scan():
+        return ops.topk_scan(lambda c0, c1: ops.pairwise_scores(q, table[c0:c1], mode=mode),
+                             b, e, filt, k=k, chunk=engine.CUDA_TOPK_CHUNK, device=q.device)
+
+    def fused_plain():
+        return ops.pairwise_topk_plain(q, table, filt, k, mode, block_e=4096)
+
+    (fv, fi), (sv, si) = fused(), scan()
+    check(torch.equal(fv, sv) and torch.equal(fi, si),
+          f"fused top-k {mode} B={b}: not bit-equal to the chunked scan")
+    err = check_topk(torch, fv, fi, *fused_plain(), f"fused top-k {mode} B={b}")[0] \
+        if plain else 0.0
+    del fv, fi, sv, si
+    x = dict(
+        ms=time_ms(torch, fused, ITERS),
+        device_ms=time_device_ms(torch, fused, DEVICE_CALLS, DEVICE_RUNS),
+        plain_ms=time_ms(torch, fused_plain, 3) if plain else None, library_ms=None,
+        scan_ms=time_ms(torch, scan, max(3, ITERS // 4)),
+        **score_bound(mode, b, e, d, 4 * (b * d + e * d + b * filt.shape[1]) + 8 * b * k,
+                      card),
+        shape=f"B={b} E={e} d={d} F={filt.shape[1]} k={k} mode={mode}",
+        launches_per_batch=2, max_abs_err=err,
+    )
+    plain_s = "not timed" if x["plain_ms"] is None else f"{x['plain_ms']:.4f} ms"
+    log(f"time pairwise_topk [{x['shape']}]: kernel {x['ms']:.4f} ms ({x['device_ms']:.4f} "
+        f"ms device time), chunked scan {x['scan_ms']:.4f} ms, plain {plain_s}, bound "
+        f"{x['bound_ms']:.4f} ms ({x['bound_by']}: {x['instructions']:.4g} fp32 "
+        f"instructions), {100 * x['bound_ms'] / x['device_ms']:.1f}% of bound by device "
+        f"time; {card}")
+    return x
+
+
 #: batches timed beside the serving batch: (label, mode, rows)
 SCORE_SHAPES = (("l1 B=8", "l1", 8), ("dot B=64", "dot", SERVE_BATCH))
 
@@ -819,6 +899,18 @@ def timings(torch, models, ops, engine, m, params, known_filters, dev, card):
         out["shapes"][label] = score_kernel_times(torch, ops, qs, table, gold,
                                                   filt[:rows].contiguous(), mode_,
                                                   engine.CUDA_TOPK_CHUNK, card)
+    # the fused top-k at the serving batch and at the tier's 2,048-row bucket
+    known_filt = torch.as_tensor(known_filters.rows_for(h.cpu().numpy(), r.cpu().numpy()),
+                                 device=dev)
+    out["pairwise_topk"] = topk_times(torch, ops, engine, q, table, known_filt, mode, TOPK_K,
+                                      card)
+    h2 = torch.randint(0, e, (TIER_BUCKET,), device=dev, generator=g)
+    r2 = torch.randint(0, m.num_relations, (TIER_BUCKET,), device=dev, generator=g)
+    q2, _, _ = models.lp_query_tails(params, m, h2, r2)
+    filt2 = torch.as_tensor(known_filters.rows_for(h2.cpu().numpy(), r2.cpu().numpy()),
+                            device=dev)
+    out["shapes"][f"topk B={TIER_BUCKET}"] = {"pairwise_topk": topk_times(
+        torch, ops, engine, q2.contiguous(), table, filt2, mode, TOPK_K, card, plain=False)}
     return out
 
 
@@ -2553,7 +2645,7 @@ def federation_path(torch, np, ops, sops, serving, dev, args, card, sizes):
     tier_launches = {k: v for c in counters for k, v in c.items()}
     tier_launches = {k: v - fed_launches.get(k, 0) for k, v in tier_launches.items()}
     if dev.type == "cuda":
-        check(tier_launches["fused_ranks"] > 0 and tier_launches["pairwise_scores"] > 0,
+        check(tier_launches["fused_ranks"] > 0 and tier_launches["pairwise_topk"] > 0,
               f"the tier's requests launched {tier_launches}")
     round_s = sum(ticks)
     stages = dict(clock.secs)
@@ -4653,7 +4745,7 @@ def main(argv=None) -> int:
     tier, m, versions, waves, res = serve(
         torch, np, models, serving, ops, dev, args,
         (DBPEDIA["entities"], DBPEDIA["relations"], DBPEDIA["triples"]))
-    for name in ("pairwise_scores", "fused_ranks"):
+    for name in ("pairwise_topk", "fused_ranks"):
         check(res["launches"][name] > 0, f"the main path never launched {name}")
     topk_err = recheck_served(torch, np, models, ops, tier, m, versions, waves, dev)
     times = timings(torch, models, ops, engine, m, versions[1], tier.filters, dev, card)

@@ -1,12 +1,16 @@
-"""Public wrappers of the two triple_score kernels.
+"""Public wrappers of the triple_score kernels.
 
 ``pairwise_scores`` — (B, d) × (E, d) → (B, E) scores (csrc/pairwise_scores.cu).
 ``fused_ranks`` — filtered rank counts ``out[i] = Σ_e 1[score(q_i, e) > gold_i]``
 over entities not listed in ``filt[i]``, without materializing (B, E)
-(csrc/fused_ranks.cu). Both share the tile math of csrc/tile_score.cuh.
-The count is taken over every entity, and then each distinct filtered id
-that beats gold is subtracted once; the plain version takes the same two
-steps, on the same scores.
+(csrc/fused_ranks.cu). The count is taken over every entity, and then each
+distinct filtered id that beats gold is subtracted once; the plain version
+takes the same two steps, on the same scores.
+``pairwise_topk`` — the k best (score, id) of each query over the entities
+not listed in ``filt[i]``, selected inside the scoring kernel, so (B, E)
+never exists either (csrc/pairwise_topk.cu); bit-equal to ``topk_scan``
+over ``pairwise_scores``. All three share the tile math of
+csrc/tile_score.cuh.
 
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU tensor
 it takes the plain PyTorch version beside it (``*_plain``), which repeats
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -33,10 +37,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _HEADERS = (_CSRC / "tile_score.cuh", SPLIT_TF32)
 PAIRWISE_LIB = CudaLibrary("triple_score_pairwise", _CSRC / "pairwise_scores.cu", _HEADERS)
 FUSED_RANKS_LIB = CudaLibrary("triple_score_fused_ranks", _CSRC / "fused_ranks.cu", _HEADERS)
-LIBRARIES = (PAIRWISE_LIB, FUSED_RANKS_LIB)
+TOPK_LIB = CudaLibrary("triple_score_topk", _CSRC / "pairwise_topk.cu", _HEADERS)
+LIBRARIES = (PAIRWISE_LIB, FUSED_RANKS_LIB, TOPK_LIB)
 
-#: kernel launches per wrapper since the last ``reset_launches``
-LAUNCHES: Dict[str, int] = {"pairwise_scores": 0, "fused_ranks": 0}
+#: kernel launches per wrapper since the last ``reset_launches`` (a
+#: ``pairwise_topk`` launch is its scoring kernel and its merge)
+LAUNCHES: Dict[str, int] = {"pairwise_scores": 0, "fused_ranks": 0, "pairwise_topk": 0}
 
 
 def reset_launches() -> None:
@@ -45,7 +51,7 @@ def reset_launches() -> None:
 
 
 def build_kernels() -> Dict[str, str]:
-    """Build both kernel libraries (two ``nvcc`` processes, started
+    """Build the kernel libraries (one ``nvcc`` process each, started
     together) and return the compiler logs."""
     return build_all(LIBRARIES)
 
@@ -54,6 +60,9 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "triple_score_pairwise": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     "triple_score_fused_ranks": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    "triple_score_topk": [_VP] * 6 + [_I] * 8 + [_VP],
+    "triple_score_topk_blocks": [_I] * 7 + [ctypes.POINTER(_I)],
+    "triple_score_topk_cap": [_I, _I, _I],
 }
 
 
@@ -81,8 +90,10 @@ def _resolve_mode(ord_: int, mode: Optional[str]) -> str:
     return mode
 
 
-def _kernel_inputs(what: str, mode: str, **tensors) -> torch.device:
-    """Device of the inputs; raises on what the kernels do not take."""
+def _kernel_inputs(what: str, mode: str, strict: bool = False, **tensors) -> torch.device:
+    """Device of the inputs; raises on what the kernels do not take. The
+    dtypes and the layout are checked on a CUDA device, and with ``strict``
+    on the CPU too."""
     devs = {t.device for t in tensors.values()}
     if len(devs) != 1:
         raise ValueError(f"{what}: inputs on different devices {sorted(map(str, devs))}")
@@ -95,7 +106,7 @@ def _kernel_inputs(what: str, mode: str, **tensors) -> torch.device:
                          f"{tuple(q.shape)} and {tuple(ent.shape)}")
     if mode == "cl1" and q.shape[1] % 2:
         raise ValueError(f"{what}: cl1 rows need an even width, got {q.shape[1]}")
-    if dev.type == "cuda":
+    if dev.type == "cuda" or strict:
         for name, t in tensors.items():
             want = torch.int32 if name == "filt" else torch.float32
             if t.dtype != want:
@@ -156,6 +167,53 @@ def exclusion_mask(filt: torch.Tensor, c0: int, c1: int) -> torch.Tensor:
     mask = torch.zeros(b, w + 1, dtype=torch.bool, device=filt.device)
     mask.scatter_(1, rel, True)
     return mask[:, :w]
+
+
+def ordered_keys(vals: torch.Tensor) -> torch.Tensor:
+    """(B, n) float32 → (B, n) int64 keys, unique per row, ordered by score
+    descending and then by slot ascending: ``torch.topk`` of the keys is the
+    stable ``lax.top_k`` of the scores."""
+    v = (vals + 0.0).contiguous()  # -0.0 → +0.0: they tie as floats
+    bits = v.view(torch.int32).long()
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    pos = torch.arange(vals.shape[1], dtype=torch.int64, device=vals.device)
+    return ordered * (1 << 32) + ((1 << 32) - 1 - pos)
+
+
+def topk_scan(score_block: Callable[[int, int], torch.Tensor], b: int, e: int,
+              filt: torch.Tensor, *, k: int, chunk: int,
+              device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise top-k: carry (vals, ids) of width ``min(k, e)``, fold in one
+    entity chunk at a time. ``score_block(c0, c1) → (B, c1−c0)`` scores;
+    filtered ids score ``-inf``.
+
+    Tie order matches ``lax.top_k`` over the JAX package's ``[carried,
+    block]`` concatenation: among equal scores the earlier slot wins, so ties
+    go to the lower entity id and the initial ``(-inf, -1)`` slots win ties
+    among ``-inf``. ``torch.topk`` promises nothing about ties, so the merge
+    ranks ``ordered_keys``, which makes the order total and the result the
+    same for any chunk size."""
+    kk = min(k, e)
+    vals = torch.full((b, kk), float("-inf"), dtype=torch.float32, device=device)
+    ids = torch.full((b, kk), -1, dtype=torch.int32, device=device)
+    for c0 in range(0, e, chunk):
+        c1 = min(c0 + chunk, e)
+        s = score_block(c0, c1).masked_fill(exclusion_mask(filt, c0, c1), float("-inf"))
+        cb = torch.arange(c0, c1, dtype=torch.int32, device=device)
+        allv = torch.cat([vals, s], 1)
+        alli = torch.cat([ids, cb[None].expand(b, -1)], 1)
+        _, sel = torch.topk(ordered_keys(allv), kk, dim=1)
+        vals, ids = allv.gather(1, sel), alli.gather(1, sel)
+    return vals, ids
+
+
+def pairwise_topk_plain(q: torch.Tensor, ent: torch.Tensor, filt: torch.Tensor, k: int,
+                        mode: str, block_e: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fused top-k kernel: ``topk_scan`` over
+    ``block_e``-entity blocks of ``tile_scores_plain``."""
+    q = q.float()
+    return topk_scan(lambda c0, c1: tile_scores_plain(q, ent[c0:c1].float(), mode),
+                     q.shape[0], ent.shape[0], filt, k=k, chunk=block_e, device=q.device)
 
 
 def distinct_filter(filt: torch.Tensor, num_entities: int) -> torch.Tensor:
@@ -248,3 +306,63 @@ def fused_ranks(q: torch.Tensor, ent: torch.Tensor, gold: torch.Tensor,
     _check_rc(rc, cdll, "fused_ranks")
     LAUNCHES["fused_ranks"] += 1
     return out
+
+
+_TOPK_CAPS: Dict[Tuple[int, int, str], int] = {}
+
+
+def pairwise_topk_cap(d: int, mode: str, device: torch.device) -> int:
+    """The largest k the fused top-k kernel takes at row width ``d`` on a
+    CUDA device: what a query tile of 8 rows holds in shared memory."""
+    key = (device.index, d, mode)
+    if key not in _TOPK_CAPS:
+        fn, _ = _entry(TOPK_LIB, "triple_score_topk_cap")
+        _TOPK_CAPS[key] = fn(d, _MODE_IDS[mode], device.index)
+    return _TOPK_CAPS[key]
+
+
+def pairwise_topk(q: torch.Tensor, ent: torch.Tensor, filt: torch.Tensor, *, k: int,
+                  mode: str = "l1", block_e: int = 2048) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each query's scores over the entities its filter row does
+    not list (``filt`` (B, F) int32, pad −1): ``(vals, ids)``, (B, min(k, E))
+    float32 and int32, best first, ties to the lower id, places no such
+    entity fills ``(-inf, -1)``: bit for bit ``topk_scan`` over
+    ``pairwise_scores``. On a CUDA device one launch of the fused kernel and
+    one of its merge; k above ``pairwise_topk_cap`` is refused (the scan
+    takes it). ``block_e`` sizes the plain version's blocks."""
+    mode = _resolve_mode(1, mode)
+    dev = _kernel_inputs("pairwise_topk", mode, strict=True, q=q, ent=ent, filt=filt)
+    b = q.shape[0]
+    if filt.dim() != 2 or filt.shape[0] != b:
+        raise ValueError(f"pairwise_topk: expected filt ({b}, F), got {tuple(filt.shape)}")
+    if k < 1:
+        raise ValueError(f"pairwise_topk: k must be at least 1, got {k}")
+    if dev.type == "cpu":
+        return pairwise_topk_plain(q, ent, filt, k, mode, block_e)
+    e, d = ent.shape
+    kb = min(int(k), e)
+    vals = torch.empty(b, kb, dtype=torch.float32, device=dev)
+    ids = torch.empty(b, kb, dtype=torch.int32, device=dev)
+    if b == 0 or kb == 0:
+        return vals, ids
+    cap = pairwise_topk_cap(d, mode, dev)
+    if kb > cap:
+        raise ValueError(f"pairwise_topk: k {kb} is above the kernel's {cap} at d {d}; "
+                         f"the blockwise scan takes it")
+    if filt.shape[1] == 0:
+        filt = torch.full((b, 1), -1, dtype=torch.int32, device=dev)
+    blocks, cdll = _entry(TOPK_LIB, "triple_score_topk_blocks")
+    fn, _ = _entry(TOPK_LIB, "triple_score_topk")
+    nblk = ctypes.c_int(0)
+    f = filt.shape[1]
+    with torch.cuda.device(dev):
+        rc = blocks(b, e, d, f, kb, _MODE_IDS[mode], dev.index, ctypes.byref(nblk))
+        _check_rc(rc, cdll, "pairwise_topk")
+        part = torch.empty(b, nblk.value, kb, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q.data_ptr(), ent.data_ptr(), filt.data_ptr(), part.data_ptr(),
+                vals.data_ptr(), ids.data_ptr(), b, e, d, f, kb, nblk.value,
+                _MODE_IDS[mode], dev.index, stream)
+    _check_rc(rc, cdll, "pairwise_topk")
+    LAUNCHES["pairwise_topk"] += 1
+    return vals, ids

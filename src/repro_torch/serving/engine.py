@@ -6,31 +6,27 @@ continuous batching over ``CausalLM.prefill``/``decode_step``.
 KGE candidate ranking (``KGECandidateRanker``): filtered ranks and streaming
 top-k over a trained model.
 
-Ranks go through the fused-rank kernel (``kge.eval.streaming_side_counts``);
-top-k scores the entity table one chunk at a time through the pairwise
-kernel and folds each chunk into a carried top-k, so the (B, E) score
-matrix never exists at once.
-
-Tie order matches ``lax.top_k`` over the JAX package's ``[carried, block]``
-concatenation: among equal scores the earlier slot wins, so ties go to the
-lower entity id and the initial ``(-inf, -1)`` slots win ties among
-``-inf``. ``torch.topk`` promises nothing about ties, so the merge ranks
-unique int64 keys — the score's order-preserving integer image in the high
-32 bits, the reversed slot position in the low 32 — which makes the order
-total and the result the same for any chunk size.
+Ranks go through the fused-rank kernel (``kge.eval.streaming_side_counts``).
+Top-k on a CUDA device goes through the fused top-k kernel
+(``pairwise_topk``), which selects inside the scoring kernel; on the CPU,
+for families without a decomposition and for k above the kernel's cap, it
+scores the entity table one chunk at a time and folds each chunk into a
+carried top-k (``topk_scan``), so the (B, E) score matrix never exists at
+once. Both order ties alike: to the lower entity id, with ``(-inf, -1)`` in
+places no unfiltered entity fills.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.kernels.triple_score import pairwise_scores
-from repro_torch.kernels.triple_score.ops import exclusion_mask
+from repro_torch.kernels.triple_score import pairwise_scores, pairwise_topk, pairwise_topk_cap
+from repro_torch.kernels.triple_score.ops import topk_scan
 from repro_torch.kge.eval import streaming_side_counts
 from repro_torch.kge.models import lp_query_tails, score_triples
 from repro_torch.serving.tables import FilterPack, TableVersion, check_id_range
@@ -121,51 +117,24 @@ class KGECandidateRanker:
         return ids.cpu().numpy(), vals.cpu().numpy()
 
 
-def _ordered_keys(vals: torch.Tensor) -> torch.Tensor:
-    """(B, n) float32 → (B, n) int64 keys, unique per row, ordered by score
-    descending and then by slot ascending: ``torch.topk`` of the keys is the
-    stable ``lax.top_k`` of the scores."""
-    v = (vals + 0.0).contiguous()  # -0.0 → +0.0: they tie as floats
-    bits = v.view(torch.int32).long()
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    pos = torch.arange(vals.shape[1], dtype=torch.int64, device=vals.device)
-    return ordered * (1 << 32) + ((1 << 32) - 1 - pos)
-
-
-def _topk_scan(score_block: Callable[[int, int], torch.Tensor], b: int, e: int,
-               filt: torch.Tensor, *, k: int, chunk: int,
-               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shared blockwise top-k merge: carry (vals, ids), fold in one entity
-    chunk at a time. ``score_block(c0, c1) → (B, c1−c0)`` scores; filtered
-    ids score ``-inf``."""
-    kk = min(k, e)
-    vals = torch.full((b, kk), float("-inf"), dtype=torch.float32, device=device)
-    ids = torch.full((b, kk), -1, dtype=torch.int32, device=device)
-    for c0 in range(0, e, chunk):
-        c1 = min(c0 + chunk, e)
-        s = score_block(c0, c1).masked_fill(exclusion_mask(filt, c0, c1), float("-inf"))
-        cb = torch.arange(c0, c1, dtype=torch.int32, device=device)
-        allv = torch.cat([vals, s], 1)
-        alli = torch.cat([ids, cb[None].expand(b, -1)], 1)
-        _, sel = torch.topk(_ordered_keys(allv), kk, dim=1)
-        vals, ids = allv.gather(1, sel), alli.gather(1, sel)
-    return vals, ids
-
-
 def _topk_chunk(block_e: int, device: torch.device) -> int:
     return max(block_e, CUDA_TOPK_CHUNK) if device.type == "cuda" else block_e
 
 
 def _streaming_topk_decomposed(q, table, filt, *, k: int, block_e: int, mode: str):
-    """Top-k of a decomposed query: each chunk scored by the pairwise
-    kernel (its plain version on the CPU)."""
+    """Top-k of a decomposed query: on a CUDA device the fused top-k kernel
+    where k fits it; else each chunk scored by the pairwise kernel (its
+    plain version on the CPU) and folded by the scan."""
     q = q.float().contiguous()
+    if q.device.type == "cuda" and min(k, table.shape[0]) <= pairwise_topk_cap(
+            table.shape[1], mode, q.device):
+        return pairwise_topk(q, table, filt, k=k, mode=mode)
 
     def score_block(c0, c1):
         return pairwise_scores(q, table[c0:c1], mode=mode, block_e=block_e)
 
-    return _topk_scan(score_block, q.shape[0], table.shape[0], filt, k=k,
-                      chunk=_topk_chunk(block_e, q.device), device=q.device)
+    return topk_scan(score_block, q.shape[0], table.shape[0], filt, k=k,
+                     chunk=_topk_chunk(block_e, q.device), device=q.device)
 
 
 def _streaming_topk_generic(params, model, h, r, filt, *, k: int, block_e: int):
@@ -181,8 +150,8 @@ def _streaming_topk_generic(params, model, h, r, filt, *, k: int, block_e: int):
         tt = ids[None].expand(b, be).reshape(-1)
         return score_triples(params, model, hh, rr, tt).reshape(b, be)
 
-    return _topk_scan(score_block, b, model.num_entities, filt, k=k, chunk=block_e,
-                      device=h.device)
+    return topk_scan(score_block, b, model.num_entities, filt, k=k, chunk=block_e,
+                     device=h.device)
 
 
 def topk_tails_dispatch(params, model, h, r, filt, *, k: int, block_e: int):

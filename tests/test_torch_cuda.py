@@ -47,7 +47,11 @@ from repro_torch.kernels.triple_score import (
     fused_ranks_plain,
     pairwise_scores,
     pairwise_scores_plain,
+    pairwise_topk,
+    pairwise_topk_cap,
+    pairwise_topk_plain,
 )
+from repro_torch.kernels.triple_score.ops import topk_scan
 from repro_torch.kernels.sparse_update import LAUNCHES as STEP_LAUNCHES
 from repro_torch.kernels.sparse_update import STEPS as STEP_STEPS
 from repro_torch.kernels.sparse_update import (
@@ -59,6 +63,7 @@ from repro_torch.kernels.sparse_update import (
 from repro_torch.kge.models import KGEModel, params_from_numpy
 from repro_torch.kge.trainer import KGETrainer
 from repro_torch.serving import KGECandidateRanker, KGEServingTier
+from repro_torch.serving import engine as serving_engine
 
 
 @pytest.fixture
@@ -252,11 +257,120 @@ def test_tier_on_the_card_equals_the_cpu_tier(cuda_dev):
             for x, y in zip(a.result, b.result):
                 np.testing.assert_array_equal(x, y)
     assert LAUNCHES["fused_ranks"] > before["fused_ranks"]
-    assert LAUNCHES["pairwise_scores"] > before["pairwise_scores"]
+    assert LAUNCHES["pairwise_topk"] > before["pairwise_topk"]
+    assert LAUNCHES["pairwise_scores"] == before["pairwise_scores"]
     q = known[:16]
     on_card, on_cpu = (KGECandidateRanker(t._active.params, m, known)
                        .rank_tails(q[:, 0], q[:, 1], q[:, 2]) for t in tiers)
     np.testing.assert_array_equal(on_card, on_cpu)
+
+
+def _topk_case(dev, b, e, d, filt_kind, seed):
+    """Dyadic queries and a table of repeated rows (exact ties, which go to
+    the lower id), and a filter of one kind: none (width 0), messy (−1 pads,
+    repeats, ids at and past E) or all but three entities listed."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(_dyadic(rng, (b, d))).to(dev)
+    rows = max(e // 4, 1)
+    ent = torch.from_numpy(_dyadic(rng, (rows, d))[rng.integers(0, rows, e)]).to(dev)
+    if filt_kind == "none":
+        filt = np.zeros((b, 0), np.int32)
+    elif filt_kind == "messy":
+        filt = rng.integers(-1, e + 4, (b, 9)).astype(np.int32)
+        filt[::2, 1] = filt[::2, 0]
+        filt[1::3, -1] = -1
+        filt[::4, -2] = e
+    else:
+        filt = np.full((b, e), -1, np.int32)
+        for i in range(b):
+            keep = rng.choice(e, 3, replace=False)
+            listed = np.setdiff1d(np.arange(e), keep)
+            filt[i, :len(listed)] = rng.permutation(listed)
+    return q, ent, torch.from_numpy(filt).to(dev)
+
+
+def _check_topk(q, ent, filt, k, mode):
+    """The serving path's top-k dispatch against the blockwise scan over the
+    pairwise kernel, bit for bit in values and ids; one fused launch and no
+    pairwise launch where k fits the fused kernel, the scan past its cap."""
+    e = ent.shape[0]
+    want_v, want_i = topk_scan(lambda c0, c1: pairwise_scores(q, ent[c0:c1], mode=mode),
+                               q.shape[0], e, filt, k=k, chunk=1000, device=q.device)
+    fused = min(k, e) <= pairwise_topk_cap(q.shape[1], mode, q.device)
+    before = dict(LAUNCHES)
+    vals, ids = serving_engine._streaming_topk_decomposed(q, ent, filt, k=k, block_e=2048,
+                                                          mode=mode)
+    assert torch.equal(vals, want_v) and torch.equal(ids, want_i)
+    if fused:
+        assert LAUNCHES["pairwise_topk"] == before["pairwise_topk"] + 1
+        assert LAUNCHES["pairwise_scores"] == before["pairwise_scores"]
+    else:
+        assert LAUNCHES["pairwise_topk"] == before["pairwise_topk"]
+        assert LAUNCHES["pairwise_scores"] > before["pairwise_scores"]
+    return vals, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot", "cl1"])
+@pytest.mark.parametrize("b", [1, 7, 64, 65, 2048])
+@pytest.mark.parametrize("kb", ["1", "16", "64", "cap", "cap+1"])
+def test_pairwise_topk_bit_equal_to_the_scan(cuda_dev, mode, b, kb):
+    """Every query tile (B 1 to 2,048, several grid rows), k from 1 to the
+    kernel's cap, and the cap + 1, which goes to the scan, on a ragged table
+    (3,001 rows) with messy filters."""
+    cap = pairwise_topk_cap(100, mode, cuda_dev)
+    assert cap >= 64
+    k = {"cap": cap, "cap+1": cap + 1}.get(kb) or int(kb)
+    q, ent, filt = _topk_case(cuda_dev, b, 3001, 100, "messy", seed=b * 7 + k)
+    _check_topk(q, ent, filt, k, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["l1", "l2", "dot", "cl1"])
+@pytest.mark.parametrize("filt_kind", ["none", "messy", "all-but-three"])
+@pytest.mark.parametrize("b,e,d,k", [(7, 1000, 100, 16), (65, 129, 100, 64), (9, 13, 100, 64),
+                                     (5, 300, 14, 10)],
+                         ids=["ragged", "one-tile-past", "e-below-k", "unaligned-rows"])
+def test_pairwise_topk_filters_and_small_tables(cuda_dev, mode, filt_kind, b, e, d, k):
+    """Filters of width 0, messy ones, and all but three entities listed
+    (the width of the table, too wide to stage in shared memory): the
+    three come first and (−inf, −1) fills the rest; tables of one tile
+    past a multiple of 128, fewer rows than k, and rows that are not
+    16-byte aligned."""
+    q, ent, filt = _topk_case(cuda_dev, b, e, d, filt_kind, seed=e + k)
+    vals, ids = _check_topk(q, ent, filt, k, mode)
+    assert vals.shape == (b, min(k, e))
+    if filt_kind == "all-but-three":
+        assert (ids[:, 3:] == -1).all() and torch.isneginf(vals[:, 3:]).all()
+        assert (ids[:, :3] >= 0).all()
+    if mode != "cl1":  # dyadic sums are exact in any order; cl1 takes square roots
+        plain_v, plain_i = pairwise_topk_plain(q.cpu(), ent.cpu(), filt.cpu(), k, mode)
+        assert torch.equal(ids.cpu(), plain_i) and bool((vals.cpu() == plain_v).all())
+
+
+@pytest.mark.cuda
+def test_pairwise_topk_counts_one_launch_per_tier_batch(cuda_dev):
+    """A top-k run of the tier: one fused launch per dispatched batch, no
+    pairwise launch; and the wrapper refuses k above its cap."""
+    e, r, d = 4000, 5, 100
+    rng = np.random.default_rng(3)
+    p = {"ent": _dyadic(rng, (e, d)), "rel": _dyadic(rng, (r, d))}
+    known = np.stack([rng.integers(0, e, 2000), rng.integers(0, r, 2000),
+                      rng.integers(0, e, 2000)], 1)
+    tier = KGEServingTier(params_from_numpy(p, cuda_dev), KGEModel("transe", e, r, d), known,
+                          device=cuda_dev, max_batch=64)
+    batches, before = tier.stats["batches"], dict(LAUNCHES)
+    for i in range(40):
+        q = known[rng.integers(0, len(known), 1 + i % 23)]
+        tier.submit_topk(q[:, 0], q[:, 1], k=10)
+    tier.run_until_drained()
+    assert LAUNCHES["pairwise_topk"] - before["pairwise_topk"] == tier.stats["batches"] - batches
+    assert LAUNCHES["pairwise_scores"] == before["pairwise_scores"]
+    cap = pairwise_topk_cap(d, "l1", cuda_dev)
+    q = torch.zeros(2, d, device=cuda_dev)
+    with pytest.raises(ValueError):
+        pairwise_topk(q, tier._active.params["ent"], torch.full((2, 1), -1, dtype=torch.int32,
+                                                                 device=cuda_dev), k=cap + 1)
 
 
 @pytest.mark.cuda

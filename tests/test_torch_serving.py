@@ -22,6 +22,7 @@ from repro.serving import tables as jtables
 from repro_torch.core import faults as tfaults
 from repro_torch.core.distributed import committed_device, replica_devices
 from repro_torch.kernels import dispatch as tdispatch
+from repro_torch.kernels.triple_score import pairwise_topk_plain
 from repro_torch.kge import models as tm
 from repro_torch.serving import (
     FilterPack,
@@ -182,6 +183,36 @@ def test_ranker_ranks_and_topk_bit_equal_on_dyadic(known, family, norm_ord, d):
         assert ti.dtype == np.int32 and tv.dtype == np.float32
         np.testing.assert_array_equal(ti, ji)
         np.testing.assert_array_equal(tv, jv)
+
+
+@pytest.mark.parametrize("family,norm_ord,d", [
+    ("transe", 1, 32), ("transe", 2, 32), ("distmult", 1, 32), ("complex", 1, 16),
+    ("rotate", 1, 16),
+])
+def test_pairwise_topk_plain_equals_the_scan_and_the_jax_ranker(known, family, norm_ord, d):
+    """The fused top-k kernel's plain version, on each decomposed family's
+    query, table and mode (l1, l2, dot, cl1): bit-equal to the ranker's scan
+    on the CPU, and to the JAX package's ranker (RotatE's cl1 takes square
+    roots the two frameworks round alike only up to near-ties)."""
+    m, jp, tmod, tp = _world(family, norm_ord, d)
+    jr, tr = JaxRanker(jp, m, known, block_e=64), KGECandidateRanker(tp, tmod, known, block_e=64)
+    q = np.concatenate([_tri(20, 2), known[:12]])
+    filt = torch.as_tensor(tr.filters.rows_for(q[:, 0], q[:, 1]))
+    qv, table, mode = tm.lp_query_tails(tp, tmod, torch.as_tensor(q[:, 0]),
+                                        torch.as_tensor(q[:, 1]))
+    for k in (1, 7, 16):
+        vals, ids = pairwise_topk_plain(qv.contiguous(), table, filt, k, mode, block_e=48)
+        ti, tv = tr.topk_tails(q[:, 0], q[:, 1], k=k)
+        np.testing.assert_array_equal(ids.numpy(), ti)
+        np.testing.assert_array_equal(vals.numpy(), tv)
+        ji, jv = jr.topk_tails(q[:, 0], q[:, 1], k=k)
+        if family == "rotate":
+            np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-5)
+            differ = ti != ji
+            assert np.all(np.abs(tv[differ] - jv[differ]) <= 1e-5 * (1 + np.abs(jv[differ])))
+        else:
+            np.testing.assert_array_equal(ids.numpy(), ji)
+            np.testing.assert_array_equal(vals.numpy(), jv)
 
 
 @pytest.mark.parametrize("family,d", [("rotate", 16), ("transh", 12)])

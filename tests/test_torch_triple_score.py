@@ -28,8 +28,10 @@ from repro_torch.kernels.triple_score import (
     pairwise_scores,
     pairwise_scores_plain,
     pairwise_scores_ref,
+    pairwise_topk,
+    pairwise_topk_plain,
 )
-from repro_torch.kernels.triple_score.ops import distinct_filter, exclusion_mask
+from repro_torch.kernels.triple_score.ops import distinct_filter, exclusion_mask, topk_scan
 
 MODES = ["l1", "l2", "dot", "cl1"]
 #: (B, E, d, F): ragged B and E against every block size in play
@@ -221,3 +223,77 @@ def test_wrappers_validate_and_cpu_never_counts_a_launch():
         fused_ranks(q, e, torch.zeros(3), torch.full((2, 1), -1, dtype=torch.int32))
     with pytest.raises(ValueError):
         fused_ranks(q, e, torch.zeros(2), torch.full((2,), -1, dtype=torch.int32))
+
+
+# ------------------------------------------------------------------ top-k
+def _topk_inputs(b, e, d, f, seed):
+    """Dyadic rows with many repeated entity rows (exact ties, which go to
+    the lower id), and filter rows with −1 pads, repeats and ids at or past
+    E; where the width allows, row 0 lists all but three entities."""
+    rng = np.random.default_rng(seed)
+    q = dyadic(rng, (b, d))
+    ent = dyadic(rng, (max(e // 3, 1), d))[rng.integers(0, max(e // 3, 1), e)]
+    filt = rng.integers(-1, e + 4, (b, f)).astype(np.int32)
+    if f > 3:
+        filt[::2, 1] = filt[::2, 0]
+        filt[1::3, -1] = -1
+        filt[::4, -2] = e
+    if f >= e - 3 > 0:
+        filt[0, :e - 3] = np.arange(3, e)
+        filt[0, e - 3:] = -1
+    return _t(q), _t(ent), _t(filt)
+
+
+def _scan(q, ent, filt, k, mode, chunk):
+    """The blockwise scan over ``pairwise_scores``, as the serving path runs
+    it on the CPU and past the fused kernel's cap."""
+    return topk_scan(lambda c0, c1: pairwise_scores(q, ent[c0:c1], mode=mode, block_e=chunk),
+                     q.shape[0], ent.shape[0], filt, k=k, chunk=chunk, device=q.device)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("b,e,k,f", [(7, 300, 16, 5), (1, 97, 1, 3), (13, 40, 64, 40),
+                                     (9, 256, 10, 0), (4, 5, 3, 8)],
+                         ids=["ragged", "k1", "e-below-k", "no-filter", "tiny"])
+def test_pairwise_topk_plain_equals_the_scan(b, e, k, f, mode):
+    """The fused kernel's plain version against the blockwise scan over the
+    pairwise scores at another chunk size: values and ids bit-equal, ties
+    to the lower id, filtered and empty places (−inf, −1) last."""
+    q, ent, filt = _topk_inputs(b, e, 16, f, seed=b * e + k)
+    before = dict(LAUNCHES)
+    vals, ids = pairwise_topk(q, ent, filt, k=k, mode=mode, block_e=32)
+    assert LAUNCHES == before
+    want_v, want_i = _scan(q, ent, filt, k, mode, chunk=17)
+    assert vals.shape == ids.shape == (b, min(k, e))
+    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
+    assert torch.equal(vals, want_v) and torch.equal(ids, want_i)
+    plain_v, plain_i = pairwise_topk_plain(q, ent, filt, k, mode, block_e=64)
+    assert torch.equal(plain_v, vals) and torch.equal(plain_i, ids)
+    if f >= e - 3 > 0:  # row 0: three entities left, then (−inf, −1)
+        assert (ids[0, 3:] == -1).all() and torch.isneginf(vals[0, 3:]).all()
+        assert sorted(ids[0, :3].tolist()) == [0, 1, 2]
+
+
+@pytest.mark.parametrize("case", ["q-float64", "filt-int64", "ent-not-contiguous", "k-zero",
+                                  "filt-1d", "filt-rows", "cl1-odd-width"])
+def test_pairwise_topk_raises_on_what_the_kernel_does_not_take(case):
+    q, ent = torch.zeros(3, 6), torch.zeros(10, 6)
+    filt = torch.full((3, 2), -1, dtype=torch.int32)
+    kw = {"k": 4, "mode": "l1"}
+    err = ValueError
+    if case == "q-float64":
+        q, err = q.double(), TypeError
+    elif case == "filt-int64":
+        filt, err = filt.long(), TypeError
+    elif case == "ent-not-contiguous":
+        ent = torch.zeros(6, 10).T
+    elif case == "k-zero":
+        kw["k"] = 0
+    elif case == "filt-1d":
+        filt = filt[:, 0]
+    elif case == "filt-rows":
+        filt = filt[:2]
+    else:
+        q, ent, kw["mode"] = q[:, :5], ent[:, :5], "cl1"
+    with pytest.raises(err):
+        pairwise_topk(q, ent, filt, **kw)

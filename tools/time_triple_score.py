@@ -17,7 +17,10 @@ rows of the gold id and three random ids. Pairwise scores: the top-k path's
 launches over chunks of ``CUDA_TOPK_CHUNK`` rows. ``--requests`` also times
 64-row top-k (k = 20) and rank requests through ``KGECandidateRanker`` on
 Dbpedia-sized TransE tables (R = 14,085, 1,373,644 uniform known triples):
-host clock, median of 30, each ending with the answer on the host. Prints one
+host clock, median of 30, each ending with the answer on the host. ``--topk``
+also times the fused top-k kernel (k = 16, l1) at B = 64 and at the tier's
+2,048-row bucket beside the chunked scan it replaced
+(``chip_smoke.py::topk_times``), where the checkout has it. Prints one
 line per kernel and shape, the card's name and power limit, and, last, one
 JSON object with every number; exits non-zero without a CUDA card.
 """
@@ -68,6 +71,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", action="store_true",
                     help="also time 64-row top-k and rank requests")
+    ap.add_argument("--topk", action="store_true",
+                    help="also time the fused top-k at B 64 and 2,048 beside the chunked scan")
     args = ap.parse_args(argv)
 
     import torch
@@ -115,6 +120,12 @@ def main(argv=None) -> int:
         res["shapes"][label] = cs.score_kernel_times(
             torch, ops, qs, table, gold.contiguous(), filt[:rows].contiguous(), mode,
             engine.CUDA_TOPK_CHUNK, card)
+    if args.topk and hasattr(ops, "pairwise_topk"):
+        for rows in (64, cs.TIER_BUCKET):
+            qt = torch.randn(rows, D, device=dev, generator=g)
+            ft = torch.randint(-1, E, (rows, 4), device=dev, generator=g, dtype=torch.int32)
+            res["shapes"][f"topk l1 B={rows}"] = cs.topk_times(
+                torch, ops, engine, qt, table, ft, "l1", cs.TOPK_K, card, plain=rows <= 64)
     cs.log(card)
     line = json.dumps(res)
     if args.out:
