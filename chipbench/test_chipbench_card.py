@@ -1,8 +1,9 @@
 """On the card: each cell's control, the reference in the next lower
 precision (bfloat16 for the configurations' float32) put in the program's
 place, has to come out as not correct at the cell's own size, and so has the
-reference with a planted fault (half of each batch; each handshake's retrain
-left out). Run on a machine with a CUDA card:
+reference with a planted fault (the controls beyond ``bf16`` that the cell's
+``cells/<cell>.py`` names: half of each batch; each handshake's retrain left
+out). Run on a machine with a CUDA card:
 
     python -m pytest -q -m chipbench_card chipbench/test_chipbench_card.py
 
@@ -18,10 +19,14 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from chipbench import cells  # noqa: E402
+
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
-CONTROLS = {c: ["bf16"] for c in CELLS}
-CONTROLS["train.transe-dbpedia.local-epochs"].append("half_batch")
-CONTROLS["fed.yago-dbpedia.handshake-ticks"] += ["half_batch", "unchanged_retrain"]
+LOADED = cells.loaded(CELLS)
+# every cell keeps its bf16 case, also one whose file is missing
+CONTROLS = {c: ["bf16"] + getattr(LOADED.get(c), "CONTROLS", []) for c in CELLS}
 
 
 @pytest.fixture
@@ -33,7 +38,7 @@ def card():
 
 
 @pytest.mark.chipbench_card
-@pytest.mark.parametrize("cell,control", [(c, k) for c in CELLS for k in CONTROLS[c]])
+@pytest.mark.parametrize("cell,control", [(c, k) for c in CONTROLS for k in CONTROLS[c]])
 def test_control_is_not_correct(card, cell, control):
     for seed in (2 ** 31 + 11, 2 ** 31 + 12, 2 ** 31 + 13):
         out = subprocess.run(

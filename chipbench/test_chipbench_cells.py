@@ -1,6 +1,7 @@
 """Every cell end to end at a tiny size on the CPU: the generators, the
 window, the readers and the reference, the result line's keys, and a
-timed path broken underneath that has to read as not correct."""
+timed path broken underneath that has to read as not correct: each fault
+that the cell's ``cells/<cell>.py`` plants."""
 from __future__ import annotations
 
 import io
@@ -17,9 +18,10 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import torch  # noqa: E402
 
-from chipbench import run, tiny  # noqa: E402
+from chipbench import cells, run, tiny  # noqa: E402
 
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+CELL_FILES = cells.loaded(CELLS)
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
@@ -56,78 +58,8 @@ def test_cell_runs_correct_with_the_contract_keys(cell, trace):
         assert set(c) == {"value", "limit"}, name
 
 
-def _unchanged_step(monkeypatch):
-    """Every epoch step returns the tables as they were."""
-    from repro_torch.kge import engine
-
-    for impl in list(engine._EPOCHS):
-        monkeypatch.setitem(engine._EPOCHS, impl,
-                            lambda params, spec, pos, neg, lr: torch.zeros(pos.shape[0]))
-
-
-def _half_batch(monkeypatch):
-    """Every step leaves out half of its batch and means over the rest."""
-    from repro_torch.kge import engine
-
-    for impl, real in list(engine._EPOCHS.items()):
-        def half(params, spec, pos, neg, lr, real=real):
-            b = max(1, pos.shape[1] // 2)
-            return real(params, spec, pos[:, :b].contiguous(), neg[:, :b].contiguous(), lr)
-
-        monkeypatch.setitem(engine._EPOCHS, impl, half)
-
-
-def _altered_rank(monkeypatch):
-    from repro_torch.kge import eval as kev
-
-    real = kev.fused_ranks
-    monkeypatch.setattr(kev, "fused_ranks", lambda *a, **kw: real(*a, **kw) + 1)
-
-
-def _altered_scores(monkeypatch):
-    from repro_torch.serving import engine
-
-    real = engine.pairwise_scores
-
-    def bent(q, table, **kw):
-        s = real(q, table, **kw)
-        return s + 0.5 * (torch.arange(s.shape[1], device=s.device) % 7)
-
-    monkeypatch.setattr(engine, "pairwise_scores", bent)
-
-
-def _unrefined(monkeypatch):
-    """The handshake's synthesized rows leave the Procrustes refine out."""
-    from repro_torch.core import tick_engine
-
-    monkeypatch.setattr(tick_engine, "procrustes", lambda a, b: torch.eye(
-        a.shape[1], dtype=a.dtype, device=a.device))
-
-
-def _zeroed_retrain(monkeypatch):
-    """Each handshake's retrain hands back zeroed entity rows, which score
-    no better than chance, so the backtrack restores every host: a fault
-    that hides behind a restore."""
-    from repro_torch.core import tick_engine
-
-    real = tick_engine._STAGES["strip"]
-
-    def zeroed(s, spec):
-        return {k: v * 0 if k == "out/ent" else v for k, v in real(s, spec).items()}
-
-    monkeypatch.setitem(tick_engine._STAGES, "strip", zeroed)
-
-
-FAULTS = {
-    "train.transe-dbpedia.local-epochs": [_unchanged_step, _half_batch],
-    "serve.transe-dbpedia.bulk-rank": [_altered_rank],
-    "serve.transe-dbpedia.bulk-topk": [_altered_scores],
-    "fed.yago-dbpedia.handshake-ticks": [_unchanged_step, _half_batch, _unrefined,
-                                         _zeroed_retrain],
-}
-
-
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS for f in FAULTS.get(c, [])],
+@pytest.mark.parametrize("cell,fault", [(c, f) for c, data in CELL_FILES.items()
+                                        for f in data.FAULTS],
                          ids=lambda x: getattr(x, "__name__", x))
 def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
     fault(monkeypatch)
@@ -150,7 +82,18 @@ def test_a_fed_control_reads_as_it_should(control, correct):
 
 
 def test_every_cell_has_its_faults():
-    assert set(FAULTS) == set(CELLS)
+    """Every cell has ``cells/<cell>.py`` with at least one planted fault,
+    and every such file names a cell of ``BENCHMARK.json``."""
+    have = cells.files()
+    assert set(have) <= set(CELLS), f"files of no cell: {sorted(set(have) - set(CELLS))}"
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for cell in CELLS:
+        assert cell in have, f"{cell} has no cells/{cell}.py"
+        data = CELL_FILES[cell]
+        assert data.FAULTS and all(callable(f) for f in data.FAULTS), cell
+        assert isinstance(data.CONTROLS, list) and "bf16" not in data.CONTROLS, cell
+        metrics = {m["name"] for m in run.cell_metrics(bench, cell)}
+        assert set(data.SPAN_METRICS) <= metrics, cell
 
 
 def test_a_run_loads_no_jax():

@@ -6,8 +6,10 @@ from __future__ import annotations
 import ast
 import io
 import json
+import os
 import re
 import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -100,10 +102,32 @@ def test_no_module_imports_jax_or_the_jax_package(path):
         assert "repro_torch" not in tops, f"{path} imports the port"
 
 
+#: the new cell's test data: a fault of its own, planted in the epoch step
+NEW_CELL_FILE = '''"""A cell added by a test, with a fault of its own."""
+
+
+def _frozen_tables(monkeypatch):
+    """Every epoch step runs at learning rate 0: the tables never move."""
+    from repro_torch.kge import engine
+
+    for impl, real in list(engine._EPOCHS.items()):
+        monkeypatch.setitem(engine._EPOCHS, impl, lambda params, spec, pos, neg, lr, real=real:
+                            real(params, spec, pos, neg, 0.0))
+
+
+FAULTS = [_frozen_tables]
+CONTROLS = ["half_batch"]
+SPAN_METRICS = ["train.epochs_in_window"]
+'''
+
+
 def test_a_new_cell_is_new_files_and_an_entry(tmp_path, monkeypatch):
     """Copy the benchmark, add a configuration, a mix, a metric and a cell as
-    new files and entries, and run the new cell at a tiny size: no file that
-    was there is edited."""
+    new files and entries, its cell file with a planted fault included, and
+    run the new cell at its size; then run the copy's own per-cell tests:
+    they take the new cell at a tiny size (it runs correct, reports its
+    metrics, and its fault reads not correct), and no file that was there is
+    edited."""
     dst = tmp_path / "chipbench"
     shutil.copytree(HERE, dst, ignore=shutil.ignore_patterns("__pycache__"))
     before = {p: p.read_bytes() for p in dst.rglob("*") if p.is_file()}
@@ -117,10 +141,11 @@ def test_a_new_cell_is_new_files_and_an_entry(tmp_path, monkeypatch):
         {"loss_gap": 1e-3, "first_change_gap": 1e-3, "change3_gap": 1e-3}))
     (dst / "metrics" / "train.epochs_in_window.py").write_text(
         "def read(ctx):\n    return ctx.counters.get('epochs')\n")
+    cell = "train.transe-other.other-epochs"
+    (dst / "cells" / f"{cell}.py").write_text(NEW_CELL_FILE)
     b = bench()
     b["configs"].append({"name": "transe-other", "source": "a test", "reduced": [],
                          "file": "chipbench/configs/transe-other.json", "why": "a test"})
-    cell = "train.transe-other.other-epochs"
     b["workloads"].append({"name": cell, "config": "transe-other", "traffic": "other-epochs",
                            "chips": 1, "why": "a test"})
     b["end_to_end"][[m["name"] for m in b["end_to_end"]].index("train_triples_per_s")][
@@ -129,8 +154,6 @@ def test_a_new_cell_is_new_files_and_an_entry(tmp_path, monkeypatch):
                            "better": "higher", "source": "program_counter", "layer": "test",
                            "moves": "train_triples_per_s", "workloads": [cell]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
-    changed = [p for p, data in before.items() if p.read_bytes() != data]
-    assert not changed
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import importlib.util
 
@@ -145,3 +168,28 @@ def test_a_new_cell_is_new_files_and_an_entry(tmp_path, monkeypatch):
                       str(trace)], device="cpu", bench_path=tmp_path / "BENCHMARK.json", out=out)
         line = json.loads(out.getvalue().strip().splitlines()[-1])
         assert rc == 0 and line["correct"] is True and key in line["metrics"]
+
+    # the copy's own per-cell tests, in a process of their own whose root is
+    # the copy, each picked by its node id (a renamed one is not found and
+    # fails the run); without a card, the card's controls skip
+    t = "chipbench/test_chipbench_"
+    want = {f"{t}cells.py::test_cell_runs_correct_with_the_contract_keys[{cell}-0]",
+            f"{t}cells.py::test_cell_runs_correct_with_the_contract_keys[{cell}-1]",
+            f"{t}cells.py::test_a_broken_timed_path_is_not_correct[{cell}-_frozen_tables]",
+            f"{t}cells.py::test_every_cell_has_its_faults",
+            f"{t}spans.py::test_a_traced_run_reports_the_span_metrics[{cell}]",
+            f"{t}contract.py::test_top_level_keys_and_command",
+            f"{t}contract.py::test_entries_have_exactly_their_keys_and_valid_names",
+            f"{t}contract.py::test_each_cell_finds_its_files_by_name[{cell}]",
+            f"{t}contract.py::test_no_module_imports_jax_or_the_jax_package[cells/{cell}.py]"}
+    cards = {f"{t}card.py::test_control_is_not_correct[{cell}-{k}]"
+             for k in ("bf16", "half_batch")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-v", "-p", "no:cacheprovider", "-p", "no:randomly",
+         *sorted(want | cards)], cwd=tmp_path, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-2000:]
+    got = dict(re.findall(r"^(\S+::\S+) (PASSED|FAILED|SKIPPED|ERROR)", proc.stdout, re.M))
+    assert got == {n: "SKIPPED" if n in cards else "PASSED" for n in want | cards}, got
+    changed = [p for p, data in before.items() if p.read_bytes() != data]
+    assert not changed

@@ -1,8 +1,9 @@
 """The readers of the program's spans (``chipbench/spans.py`` and the
 ``tick.*``, ``tier.*`` and ``idle_in_program.*`` metrics): a traced tiny
-run of each cell with spans reports the span-only metrics; the interval
-arithmetic of the idle readers on made-up spans and kernels; and, on a
-card, that the device trace and the spans share one clock:
+run of each cell reports the span metrics that its ``cells/<cell>.py``
+names; the interval arithmetic of the idle readers on made-up spans and
+kernels; and, on a card, that the device trace and the spans share one
+clock:
 
     python -m pytest -q -m chipbench_card chipbench/test_chipbench_spans.py
 """
@@ -22,17 +23,15 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-from chipbench import run, spans, tiny  # noqa: E402
+from chipbench import cells, run, spans, tiny  # noqa: E402
 from chipbench.trace import Kernel  # noqa: E402
 
-SPAN_ONLY = {"fed.yago-dbpedia.handshake-ticks": ["tick.host_ms", "tick.sync_wait_ms"],
-             "serve.transe-dbpedia.bulk-rank": ["tier.queue_ms", "tier.inflight_ms",
-                                                "tier.host_ms_per_batch"],
-             "serve.transe-dbpedia.bulk-topk": ["tier.queue_ms", "tier.inflight_ms",
-                                                "tier.host_ms_per_batch"]}
+CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+SPAN_METRICS = {c: data.SPAN_METRICS for c, data in cells.loaded(CELLS).items()
+                if data.SPAN_METRICS}
 
 
-@pytest.mark.parametrize("cell", sorted(SPAN_ONLY))
+@pytest.mark.parametrize("cell", sorted(SPAN_METRICS))
 def test_a_traced_run_reports_the_span_metrics(cell, monkeypatch):
     # other test files run in this process may have loaded JAX
     monkeypatch.setattr(run, "forbidden_modules", lambda: [])
@@ -41,7 +40,7 @@ def test_a_traced_run_reports_the_span_metrics(cell, monkeypatch):
                   "--trace", "1"], device="cpu", overrides=tiny.OVERRIDES, out=out)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     assert rc == 0 and line["correct"] is True
-    for name in SPAN_ONLY[cell]:
+    for name in SPAN_METRICS[cell]:
         assert math.isfinite(line["metrics"][name]["value"]), name
         assert line["metrics"][name]["value"] >= 0, name
 
