@@ -24,9 +24,9 @@ MoE over gloo ranks sharing the card.
 
 Phases (every failed check ends the run with a non-zero exit):
 
-1. the card (``nvidia-smi``: name, power limit), then the seven kernel
-   libraries (``triple_score``: pairwise scores, fused ranks and the fused
-   top-k;
+1. the card (``nvidia-smi``: name, power limit), then the eight kernel
+   libraries (``triple_score``: pairwise scores, fused ranks, the fused
+   top-k and TransR's projected ranks;
    ``sparse_update``: the SGD step; ``csls``: the cosine matrix;
    ``flash_attention``; ``ssd_scan``: the SSD chunks) built from
    the ``csrc`` directories under
@@ -307,6 +307,21 @@ Phases (every failed check ends the run with a non-zero exit):
    the mesh set (96 experts each, the MoE's plain all-to-all branch, flash
    at Dh 112): each rank's logits for 1 x 1,024 tokens against the
    one-process forward on the same weights, flash launched once per rank.
+22. TransR at Dbpedia's extents (E = 491,078, R = 14,085, d = 100,
+   ``init_kge``'s tables): the projected-rank kernel against its plain
+   version on the same card inputs, tail and head side, at the benchmark
+   tier's 2,048-row batch over uniform relations (~1,900 groups; the head
+   side on the rows of ``TRANSR_CHECK_GROUPS`` of them) and at B = 64,
+   counts within phase 2's near-ties; the allocator's peak over one
+   2,048-row launch under an eighth of the entity table (no projected
+   (E, d) table); a TransR ``KGEServingTier`` over phase 3's known triples
+   serving ``TRANSR_REQUESTS`` requests of 32-512 rows with the counters
+   zeroed just before: one ``projected_ranks`` launch a batch and no other
+   rank kernel, sampled requests against the plain version; the kernel
+   timed at the 2,048-row batch with the tier's filter beside its bound
+   (``projected_bound``), its device time with the checks' 33-wide filter
+   (past the 16 ids a query stages in shared memory) and the plain
+   version's one run.
 
 A kernel's ``ms`` is one call between CUDA events on an idle stream, the
 host's launch included (``time_ms``); ``device_ms`` beside it is its device
@@ -361,9 +376,11 @@ REPLACES = {
     "ssd_chunks": "src/repro/kernels/ssd_scan/ssd_scan.py:70",
     "pairwise_topk": "src/repro/kernels/triple_score/triple_score.py:83, with the top-k "
                      "merge of src/repro/serving/engine.py",
+    "projected_ranks": "src/repro/kge/eval.py:153 (TransR's ranks by index expansion "
+                       "through score_triples; no Pallas kernel)",
 }
 KERNELS = ("pairwise_scores", "fused_ranks", "sparse_sgd_step", "cosine_matrix",
-           "flash_attention", "ssd_chunks", "pairwise_topk")
+           "flash_attention", "ssd_chunks", "pairwise_topk", "projected_ranks")
 SOURCES = {
     "pairwise_scores": "src/repro_torch/kernels/triple_score/csrc/pairwise_scores.cu",
     "fused_ranks": "src/repro_torch/kernels/triple_score/csrc/fused_ranks.cu",
@@ -372,6 +389,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "ssd_chunks": "src/repro_torch/kernels/ssd_scan/csrc/ssd_chunks.cu",
     "pairwise_topk": "src/repro_torch/kernels/triple_score/csrc/pairwise_topk.cu",
+    "projected_ranks": "src/repro_torch/kernels/triple_score/csrc/projected_ranks.cu",
 }
 TRAIN_BATCH = 100    # ``KGETrainer``'s default batch
 TRAIN_LR = 0.5       # ``KGETrainer``'s default learning rate
@@ -383,6 +401,11 @@ TIER_BUCKET = 2048   # the benchmark tier's largest batch bucket
 #: largest pair of Table 3 (``kge/data.py::PAPER_KG_STATS``, ``PAPER_ALIGNMENTS``)
 YAGO = dict(entities=286_389, relations=37, triples=1_824_322)
 ALIGNED = 123_853
+#: phase 22: head-side rows of the 2,048-row batch held against the plain
+#: version, those of this many of its relation groups (the tail side: all)
+TRANSR_CHECK_GROUPS = 256
+TRANSR_REQUESTS = 24     # rank requests of 32-512 rows through phase 22's tier
+TRANSR_FILTER = 33       # filter width of phase 22's batches (the gold id first)
 RETRIEVAL_BLOCK = 4096   # ``core/alignment.py``'s rows per cosine launch
 CHECK_RETRIEVAL = 8192   # n = m of the blockwise-vs-full retrieval check
 PPAT_CHECK_ROUNDS = 16   # PPAT rounds held card vs CPU
@@ -4652,6 +4675,203 @@ def sharding_path(torch, np, fa, dev, args, card, sizes):
     return out
 
 
+# ------------------------------------------------------------ phase 22
+def transr_rows(torch, e, r, b, seed, dev):
+    """``b`` TransR rank rows over uniform relations: random fixed and gold
+    ids, a ``TRANSR_FILTER``-wide filter with the gold id first, then random
+    ids, pads (-1) and a duplicate."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    fixed = torch.randint(0, e, (b,), device=dev, generator=g)
+    gold = torch.randint(0, e, (b,), device=dev, generator=g)
+    rr = torch.randint(0, r, (b,), device=dev, generator=g)
+    filt = torch.randint(-1, e, (b, TRANSR_FILTER), device=dev, generator=g, dtype=torch.int32)
+    filt[:, 0] = gold.int()
+    filt[:, 2] = filt[:, 1]
+    return fixed, gold, rr, filt
+
+
+def projected_scores(torch, tf32, ent, proj, rel, fixed, gold, r, side):
+    """(B, E) scores of every entity in each row's open slot and the (B,)
+    gold scores, by the plain version's split-TF32 products, relation by
+    relation: the near-ties of rows where kernel and plain version differ."""
+    sign = 1.0 if side == "tail" else -1.0
+    scores = torch.empty(len(fixed), ent.shape[0], device=ent.device)
+    gs = torch.empty(len(fixed), device=ent.device)
+    for rid in r.unique().tolist():
+        rows = (r == rid).nonzero().squeeze(1)
+        m = proj[rid]
+        q = tf32.matmul_tf32(ent[fixed[rows]], m) + sign * rel[rid]
+        tab = tf32.matmul_tf32(ent, m)
+        for i, row in enumerate(rows.tolist()):
+            scores[row] = -(q[i] - tab).abs().sum(1)
+        gs[rows] = -(q - tf32.matmul_tf32(ent[gold[rows]], m)).abs().sum(1)
+    return scores, gs
+
+
+def check_projected(torch, ops, tf32, got, ent, proj, rel, fixed, gold, r, filt, side, what):
+    """Kernel counts ``got`` of these rows against the plain version with
+    phase 2's rule: they differ only by near-ties. Returns (rows that
+    differ, the largest difference, the plain version's seconds)."""
+    if fixed.is_cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ops.projected_ranks_plain(ent, proj, rel, fixed, gold, r, filt,
+                                     *ops.relation_groups(r), side, block_e=ent.shape[0])
+    if fixed.is_cuda:
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    diff = (got.long() - want.long()).abs()
+    bad = (diff > 0).nonzero().squeeze(1)
+    if len(bad):
+        scores, gs = projected_scores(torch, tf32, ent, proj, rel, fixed[bad], gold[bad],
+                                      r[bad], side)
+        near = near_tie_count(scores, gs)
+        check(bool((diff[bad] <= near).all()), f"{what}: rank counts differ beyond near-ties "
+              f"(max diff {int(diff.max())})")
+    return len(bad), int(diff.max()) if diff.numel() else 0, plain_s
+
+
+def projected_bound(b, g, e, d, f, card):
+    """Least time of a projected-rank launch, counted as
+    ``chipbench/counts/projected_ranks.py`` counts it: its bytes at the
+    memory rate, the projections (2·g·e·d² FLOP) as split TF32 on the tensor
+    cores, or the L1 scan (2·b·e·d fp32 instructions) at the fp32 pipe's
+    instruction rate, whichever is longest."""
+    mem_rate, fp32_rate, tf32_rate = peak_rates(card)
+    nbytes = 4 * (e * d + g * d * d + g * d + b * d + b * f + 2 * b)
+    terms = {"bytes": nbytes / mem_rate, "operations": 3 * 2 * g * e * d * d / tf32_rate,
+             "instructions": 2 * b * e * d / (fp32_rate / 2)}
+    by = max(terms, key=terms.get)
+    return dict(bound_ms=1e3 * terms[by], bound_by=by, bytes=nbytes)
+
+
+def transr_path(torch, np, models, serving, ops, tf32, dev, args, card, sizes,
+                batches=(TIER_BUCKET, SERVE_BATCH)):
+    """Phase 22: TransR's filtered ranks at Dbpedia's extents. a. the
+    projected-rank kernel against its plain version on the same inputs,
+    both sides, at the benchmark tier's batch over uniform relations and at
+    ``SERVE_BATCH`` (every row, but ``TRANSR_CHECK_GROUPS`` groups of the
+    large batch's head side); b. the allocator's peak over one large launch
+    under an eighth of the entity table, so no projected (E, d) table; c. a
+    TransR ``KGEServingTier``: one launch a batch (counters zeroed just
+    before), sampled requests against the plain version; d. the kernel
+    timed at the large batch with the tier's filter beside its bound, with
+    the checks' wider filter, and the plain version."""
+    e, r, n_known = sizes
+    big, small = batches
+    m = models.KGEModel("transr", e, r, DIM, norm_ord=1)
+    params = models.init_kge(args.seed, m, device=dev)
+    ent, proj, rel = params["ent"], params["proj"], params["rel"]
+    out = {"check": [], "max_count_diff": 0}
+    big_rows = None
+    for b in (big, small):
+        for side in ("tail", "head"):
+            fixed, gold, rr, filt = transr_rows(torch, e, r, b, args.seed + b, dev)
+            got = ops.projected_ranks(ent, proj, rel, fixed, gold, rr, filt, side=side)
+            groups = len(rr.unique())
+            sel = torch.arange(b, device=dev)
+            if b == big and side == "head":
+                rels = rr.unique()
+                pick = rels[::max(1, len(rels) // TRANSR_CHECK_GROUPS)][:TRANSR_CHECK_GROUPS]
+                sel = torch.isin(rr, pick).nonzero().squeeze(1)
+            what = f"projected ranks {side} B={b} ({groups} relations) E={e}"
+            ndiff, dmax, plain_s = check_projected(
+                torch, ops, tf32, got[sel], ent, proj, rel, fixed[sel], gold[sel], rr[sel],
+                filt[sel], side, what)
+            out["check"].append(dict(b=b, side=side, groups=groups, rows_checked=len(sel),
+                                     rows_differ=ndiff, max_diff=dmax, plain_s=plain_s))
+            out["max_count_diff"] = max(out["max_count_diff"], dmax)
+            log(f"check {what}: {len(sel)} rows against the plain version ({plain_s:.1f}s): "
+                f"counts differ on {ndiff}, all within near-ties")
+            if b == big and side == "tail":
+                big_rows = (fixed, gold, rr, filt, groups, plain_s)
+
+    fixed, gold, rr, filt, groups, plain_s = big_rows
+    order_offsets = ops.relation_groups(rr)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.projected_ranks(ent, proj, rel, fixed, gold, rr, filt, groups=order_offsets)
+        torch.cuda.synchronize()
+        out["launch_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        check(out["launch_peak_bytes"] < ent.numel() * 4 // 8,
+              f"a {big}-row projected-rank launch allocated {out['launch_peak_bytes']} B; "
+              f"one projected table is {ent.numel() * 4} B")
+        log(f"transr: a {big}-row launch allocates {out['launch_peak_bytes']} B beyond the "
+            f"tables (one projected (E, d) table: {ent.numel() * 4} B)")
+
+    known = draw_known(np, args.seed, e, r, n_known)
+    tier = serving.KGEServingTier(params, m, known, device=dev, max_batch=big,
+                                  warm_buckets=[("rank", big)])
+    rng = np.random.default_rng(args.seed + 31)
+    ops.reset_launches()
+    batches0 = tier.stats["batches"]
+    t0 = time.perf_counter()
+    reqs = []
+    for _ in range(TRANSR_REQUESTS):
+        q = known[rng.integers(0, len(known), int(rng.integers(32, 513)))]
+        reqs.append((q, tier.submit_rank(q[:, 0], q[:, 1], q[:, 2])))
+    tier.run_until_drained()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    serve_s = time.perf_counter() - t0
+    out["launches"] = dict(ops.LAUNCHES)
+    s = tier.stats
+    nb = s["batches"] - batches0
+    rows = sum(len(q) for q, _ in reqs)
+    check(s["served"] == s["submitted"] == TRANSR_REQUESTS and s["failed"] == 0,
+          f"transr tier: served != submitted: {s}")
+    if dev.type == "cuda":
+        check(out["launches"]["projected_ranks"] == nb > 0,
+              f"transr tier: {out['launches']['projected_ranks']} projected-rank launches "
+              f"over {nb} batches")
+        check(out["launches"]["fused_ranks"] == 0 and out["launches"]["pairwise_scores"] == 0,
+              f"transr tier: another rank kernel launched: {out['launches']}")
+    out["serve"] = dict(requests=TRANSR_REQUESTS, rows=rows, batches=nb, seconds=serve_s,
+                        relation_groups=s["relation_groups"])
+    log(f"transr: {TRANSR_REQUESTS} rank requests ({rows} rows) in {nb} batches, "
+        f"{s['relation_groups']} relation groups, {out['launches']['projected_ranks']} "
+        f"projected-rank launches, "
+        f"{serve_s:.2f}s")
+    for i, (q, req) in enumerate(reqs[::CHECK_EVERY]):
+        h, rq, t = (torch.as_tensor(q[:, j], device=dev) for j in range(3))
+        f = torch.cat([t.int()[:, None],
+                       torch.as_tensor(tier.filters.rows_for(q[:, 0], q[:, 1]), device=dev)], 1)
+        got = torch.as_tensor(req.result - 1, device=dev)
+        ndiff, _, _ = check_projected(torch, ops, tf32, got, ent, proj, rel, h, t, rq, f,
+                                      "tail", f"served transr request {i * CHECK_EVERY}")
+        log(f"recheck: served transr request {i * CHECK_EVERY} ({len(q)} rows) against the "
+            f"plain version: ok ({ndiff} rows differ only at near-ties)")
+    # the tier's own filter for the timed batch: the gold id, then the known
+    # tails of (fixed, r), as the tier assembles a rank batch
+    tier_filt = torch.cat([gold.int()[:, None], torch.as_tensor(
+        tier.filters.rows_for(fixed.cpu().numpy(), rr.cpu().numpy()), device=dev)], 1)
+    del tier
+
+    if card != "cpu":
+        def kernel(f=tier_filt):
+            return ops.projected_ranks(ent, proj, rel, fixed, gold, rr, f, groups=order_offsets)
+
+        f = tier_filt.shape[1]
+        out["times"] = dict(
+            ms=time_ms(torch, kernel, 5, warmup=1),
+            device_ms=time_device_ms(torch, kernel, 1, 3),
+            device_ms_wide_filter=time_device_ms(torch, lambda: kernel(filt), 1, 3),
+            plain_ms=1e3 * plain_s, library_ms=None,
+            **projected_bound(big, groups, e, DIM, f, card),
+            shape=f"B={big} ({groups} relations) E={e} d={DIM} F={f}, tail; the plain "
+                  f"version and device_ms_wide_filter at F={filt.shape[1]}",
+            launches_per_batch=1, max_abs_err=out["max_count_diff"])
+        x = out["times"]
+        log(f"time projected_ranks [{x['shape']}]: kernel {x['ms']:.3f} ms "
+            f"({x['device_ms']:.3f} ms device time; {x['device_ms_wide_filter']:.3f} ms at "
+            f"F={filt.shape[1]}), plain {x['plain_ms']:.1f} ms (one run), "
+            f"bound {x['bound_ms']:.3f} ms ({x['bound_by']}), "
+            f"{100 * x['bound_ms'] / x['device_ms']:.1f}% of bound by device time; {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4677,6 +4897,7 @@ def main(argv=None) -> int:
     from repro_torch.core import alignment as al
     from repro_torch.core import ppat as tp
     from repro_torch.kernels import _nvcc
+    from repro_torch.kernels import _tf32 as tf32
     from repro_torch.kernels.csls import ops as ck
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ks
@@ -4713,6 +4934,8 @@ def main(argv=None) -> int:
         lm_cards(torch, np, fa, ks, dev, args, "cpu")
         lm_training(torch, np, fa, ks, dev, args, "cpu")
         sharding_path(torch, np, fa, dev, args, "cpu", ep_rehearse_config())
+        transr_path(torch, np, models, serving, ops, tf32, dev, args, "cpu", sizes,
+                    batches=(128, 32))
         print("chip_smoke: rehearsal on the CPU passed; no card, so no result", file=sys.stderr)
         return 3
 
@@ -4835,14 +5058,23 @@ def main(argv=None) -> int:
     sharding = sharding_path(torch, np, fa, dev, args, card, get_config(KIMI))
     sharding["phase_s"] = time.perf_counter() - t0
     log(f"sharding: phase 21 took {sharding['phase_s']:.1f}s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    transr = transr_path(torch, np, models, serving, ops, tf32, dev, args, card,
+                         (DBPEDIA["entities"], DBPEDIA["relations"], DBPEDIA["triples"]))
+    transr["phase_s"] = time.perf_counter() - t0
+    log(f"transr: phase 22 took {transr['phase_s']:.1f}s")
+    worst["projected_ranks"] = transr["max_count_diff"]
+    times["projected_ranks"] = transr["times"]
 
     # each kernel's launches over the main paths that run it: serving (phase
     # 3), training (phase 6), the handshake (phase 9), LM serving (phase 12),
     # the federation with its attached tier (phase 15), the storm (phase 16)
     # the tick engines at full width and over the eleven owners (phase 17,
     # replays counted), the two parties' retrieval (phase 18), the
-    # remaining LM cards (phase 19), LM training (phase 20) and the ranks of
-    # the 1-layer kimi (phase 21)
+    # remaining LM cards (phase 19), LM training (phase 20), the ranks of
+    # the 1-layer kimi (phase 21) and TransR's tier (phase 22)
     lm_launches = {name: lm["qwen3-0.6b"]["launches"].get(name, 0)
                    + lm["mamba2-2.7b"]["launches"].get(name, 0) + cards["launches"][name]
                    + training["launches"][name] + sharding["launches"].get(name, 0)
@@ -4852,10 +5084,11 @@ def main(argv=None) -> int:
                 + fed["launches"].get(name, 0) + storm["launches"].get(name, 0)
                 + engines["full_width"]["launches"].get(name, 0)
                 + engines["eleven_owners"]["launches"].get(name, 0)
-                + two_parties["launches"].get(name, 0)
+                + two_parties["launches"].get(name, 0) + transr["launches"].get(name, 0)
                 for name in KERNELS}
     for name in ("flash_attention", "ssd_chunks"):
         check(launches[name] > 0, f"the LM serving path never launched {name}")
+    check(launches["projected_ranks"] > 0, "the TransR tier never launched projected_ranks")
 
     kernels = []
     for name in KERNELS:
@@ -4873,7 +5106,7 @@ def main(argv=None) -> int:
               "serve": res,
               "train": train, "handshake": hs, "lm": lm, "federation": fed, "storm": storm,
               "tick_engines": engines, "parties": two_parties, "lm_cards": cards,
-              "lm_training": training, "sharding": sharding,
+              "lm_training": training, "sharding": sharding, "transr": transr,
               "timings": times,
               "kernels": kernels,
               "seconds": time.perf_counter() - t_start}

@@ -1,7 +1,8 @@
 """A plain PyTorch emulation of the split-TF32 ("3xTF32") products that the
-cosine and flash-attention kernels run on the tensor cores
+cosine, flash-attention and projected-rank kernels run on the tensor cores
 (``include/split_tf32.cuh``), so the scheme's accuracy can be checked where
-there is no card. The tests use it; nothing on the main path does.
+there is no card. The tests use it, and the projected-rank kernel's plain
+version (``triple_score.ops.projected_ranks_plain``) projects with it.
 
 ``tf32_rna`` is ``cvt.rna.tf32.f32``: add 0x1000 to the bit pattern, then
 clear the low 13 bits (round to nearest, ties away from zero, to a 10-bit
@@ -41,7 +42,7 @@ def matmul_tf32(a: torch.Tensor, b: torch.Tensor, *, terms: int = 3) -> torch.Te
     ah, al = split(a)
     bh, bl = split(b)
     pairs = ((al, bh), (ah, bl), (ah, bh)) if terms == 3 else ((ah, bh),)
-    acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32, device=a.device)
     for k0 in range(0, a.shape[-1], 8):
         for x, y in pairs:
             step = x[..., k0:k0 + 8].double() @ y[..., k0:k0 + 8, :].double()

@@ -9,6 +9,10 @@ from repro_torch.kernels.triple_score.ops import (  # noqa: F401
     pairwise_topk,
     pairwise_topk_cap,
     pairwise_topk_plain,
+    projected_ranks,
+    projected_ranks_plain,
+    relation_groups,
+    relation_groups_host,
     reset_launches,
 )
 from repro_torch.kernels.triple_score.ref import (  # noqa: F401

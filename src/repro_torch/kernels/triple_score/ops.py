@@ -11,6 +11,10 @@ not listed in ``filt[i]``, selected inside the scoring kernel, so (B, E)
 never exists either (csrc/pairwise_topk.cu); bit-equal to ``topk_scan``
 over ``pairwise_scores``. All three share the tile math of
 csrc/tile_score.cuh.
+``projected_ranks`` — TransR's filtered rank counts: the rows of a batch
+grouped by relation, each group's entity table projected through its
+relation's matrix and scored in the same launch, so neither (B, E) nor a
+projected (E, d) table exists (csrc/projected_ranks.cu).
 
 For a CUDA tensor a wrapper launches its kernel or raises; for a CPU tensor
 it takes the plain PyTorch version beside it (``*_plain``), which repeats
@@ -23,9 +27,11 @@ import ctypes
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._nvcc import SPLIT_TF32, CudaLibrary, build_all
+from repro_torch.kernels._tf32 import matmul_tf32
 
 #: score tile modes: L1/L2 Minkowski (negated distance), plain dot product,
 #: or complex-L1 ("cl1": rows are [re | im] halves, per-component modulus —
@@ -38,11 +44,14 @@ _HEADERS = (_CSRC / "tile_score.cuh", SPLIT_TF32)
 PAIRWISE_LIB = CudaLibrary("triple_score_pairwise", _CSRC / "pairwise_scores.cu", _HEADERS)
 FUSED_RANKS_LIB = CudaLibrary("triple_score_fused_ranks", _CSRC / "fused_ranks.cu", _HEADERS)
 TOPK_LIB = CudaLibrary("triple_score_topk", _CSRC / "pairwise_topk.cu", _HEADERS)
-LIBRARIES = (PAIRWISE_LIB, FUSED_RANKS_LIB, TOPK_LIB)
+PROJECTED_LIB = CudaLibrary("triple_score_projected_ranks", _CSRC / "projected_ranks.cu",
+                            _HEADERS)
+LIBRARIES = (PAIRWISE_LIB, FUSED_RANKS_LIB, TOPK_LIB, PROJECTED_LIB)
 
 #: kernel launches per wrapper since the last ``reset_launches`` (a
 #: ``pairwise_topk`` launch is its scoring kernel and its merge)
-LAUNCHES: Dict[str, int] = {"pairwise_scores": 0, "fused_ranks": 0, "pairwise_topk": 0}
+LAUNCHES: Dict[str, int] = {"pairwise_scores": 0, "fused_ranks": 0, "pairwise_topk": 0,
+                            "projected_ranks": 0}
 
 
 def reset_launches() -> None:
@@ -63,6 +72,7 @@ _SIGNATURES = {
     "triple_score_topk": [_VP] * 6 + [_I] * 8 + [_VP],
     "triple_score_topk_blocks": [_I] * 7 + [ctypes.POINTER(_I)],
     "triple_score_topk_cap": [_I, _I, _I],
+    "triple_score_projected_ranks": [_VP] * 12 + [_I] * 6 + [_VP],
 }
 
 
@@ -250,6 +260,66 @@ def fused_ranks_plain(q: torch.Tensor, ent: torch.Tensor, gold: torch.Tensor,
     return counts
 
 
+def relation_groups(r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of a batch grouped by relation, on ``r``'s device and
+    without a host sync: ``(order, offsets)``, int32, where ``order`` (B,)
+    lists the rows by relation (a stable sort, so request order within a
+    group) and ``offsets`` (B + 1,) holds each group's first position in it,
+    then B from the first empty group on."""
+    b = r.shape[0]
+    rs, order = torch.sort(r.long(), stable=True)
+    new = torch.ones(b, dtype=torch.bool, device=r.device)
+    new[1:] = rs[1:] != rs[:-1]
+    gid = torch.cumsum(new, 0) - 1
+    offsets = torch.full((b + 1,), b, dtype=torch.int64, device=r.device)
+    offsets.scatter_reduce_(0, gid, torch.arange(b, device=r.device), reduce="amin")
+    return order.int(), offsets.int()
+
+
+def relation_groups_host(r: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``relation_groups`` on the host, from a numpy array of relation ids."""
+    r = np.asarray(r).reshape(-1)
+    b = len(r)
+    order = np.argsort(r, kind="stable")
+    rs = r[order]
+    starts = np.flatnonzero(np.r_[True, rs[1:] != rs[:-1]]) if b else np.zeros(0, np.int64)
+    offsets = np.full(b + 1, b, np.int32)
+    offsets[:len(starts)] = starts
+    return order.astype(np.int32), offsets
+
+
+def projected_ranks_plain(ent: torch.Tensor, proj: torch.Tensor, rel: torch.Tensor,
+                          fixed: torch.Tensor, gold: torch.Tensor, r: torch.Tensor,
+                          filt: torch.Tensor, order: torch.Tensor, offsets: torch.Tensor,
+                          side: str, block_e: int = 2048) -> torch.Tensor:
+    """Plain version of the projected-rank kernel, group by group and
+    ``block_e`` entities at a time: each group's queries ``fixed·M_r ± r``,
+    its gold scores and every entity block projected by split-TF32 products
+    (``_tf32.matmul_tf32``, the kernel's scheme), then the rows that beat
+    gold and are not listed in the filter counted."""
+    sign = 1.0 if side == "tail" else -1.0
+    e = ent.shape[0]
+    counts = torch.zeros(fixed.shape[0], dtype=torch.int32, device=ent.device)
+    offs = offsets.tolist()
+    for g in range(len(offs) - 1):
+        p0, p1 = offs[g], offs[g + 1]
+        if p0 >= p1:
+            break
+        rows = order[p0:p1].long()
+        rid = int(r[rows[0]])
+        m = proj[rid].float()
+        q = matmul_tf32(ent[fixed[rows].long()], m) + sign * rel[rid].float()
+        g_s = -(q - matmul_tf32(ent[gold[rows].long()], m)).abs().sum(1)
+        f = filt[rows]
+        got = torch.zeros(len(rows), dtype=torch.int32, device=ent.device)
+        for c0 in range(0, e, block_e):
+            c1 = min(c0 + block_e, e)
+            s = -(q[:, None, :] - matmul_tf32(ent[c0:c1], m)[None]).abs().sum(-1)
+            got += ((s > g_s[:, None]) & ~exclusion_mask(f, c0, c1)).sum(1, dtype=torch.int32)
+        counts[rows] = got
+    return counts
+
+
 # -------------------------------------------------------------- wrappers
 def pairwise_scores(q: torch.Tensor, ent: torch.Tensor, *, ord_: int = 1,
                     mode: Optional[str] = None, block_e: int = 2048) -> torch.Tensor:
@@ -366,3 +436,68 @@ def pairwise_topk(q: torch.Tensor, ent: torch.Tensor, filt: torch.Tensor, *, k: 
     _check_rc(rc, cdll, "pairwise_topk")
     LAUNCHES["pairwise_topk"] += 1
     return vals, ids
+
+
+#: the widest row the projected-rank kernel takes (its padded width)
+PROJECTED_MAX_DIM = 104
+#: floats of scratch a projected-rank launch takes a row: the query and the
+#: gold entity projected at the padded width, and the gold score
+PROJECTED_SCRATCH_PER_ROW = 2 * PROJECTED_MAX_DIM + 1
+
+
+def projected_ranks(ent: torch.Tensor, proj: torch.Tensor, rel: torch.Tensor,
+                    fixed: torch.Tensor, gold: torch.Tensor, r: torch.Tensor,
+                    filt: torch.Tensor, *, side: str = "tail",
+                    groups: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    block_e: int = 2048) -> torch.Tensor:
+    """TransR's filtered rank counts (B,) int32: for each row, the entities
+    ``e`` not listed in its ``filt`` row (int32 (B, F), pad −1) whose score
+    ``−‖q − e·M_r‖₁`` beats the gold score ``−‖q − g·M_r‖₁``, where
+    ``q = fixed·M_r + r`` and ``g = gold`` on the ``tail`` side (fixed the
+    head), ``q = fixed·M_r − r`` and ``g = gold`` the head on the ``head``
+    side (fixed the tail). ``fixed``, ``gold`` and ``r`` are (B,) ids in
+    request order; ``groups`` is ``relation_groups(r)`` (computed here when
+    not given, without a host sync), and the counts come back in request
+    order. On a CUDA device one launch of the kernel, which takes d ≤ 104;
+    on the CPU the plain version, with ``block_e``-entity blocks."""
+    if side not in ("tail", "head"):
+        raise ValueError(f"projected_ranks: side must be 'tail' or 'head', got {side!r}")
+    dev = _kernel_inputs("projected_ranks", "l1", q=rel, ent=ent, proj=proj)
+    b = fixed.shape[0]
+    e, d = ent.shape
+    if proj.shape != (rel.shape[0], d, d):
+        raise ValueError(f"projected_ranks: expected proj ({rel.shape[0]}, {d}, {d}), got "
+                         f"{tuple(proj.shape)}")
+    if gold.shape != (b,) or r.shape != (b,) or filt.dim() != 2 or filt.shape[0] != b:
+        raise ValueError(f"projected_ranks: expected gold and r ({b},) and filt ({b}, F), got "
+                         f"{tuple(gold.shape)}, {tuple(r.shape)} and {tuple(filt.shape)}")
+    order, offsets = groups if groups is not None else relation_groups(r)
+    if order.shape != (b,) or offsets.shape != (b + 1,):
+        raise ValueError(f"projected_ranks: expected order ({b},) and offsets ({b + 1},), got "
+                         f"{tuple(order.shape)} and {tuple(offsets.shape)}")
+    if dev.type == "cpu":
+        return projected_ranks_plain(ent, proj, rel, fixed, gold, r, filt, order, offsets,
+                                     side, block_e)
+    if d > PROJECTED_MAX_DIM:
+        raise ValueError(f"projected_ranks: the kernel takes d <= {PROJECTED_MAX_DIM}, got {d}")
+    if filt.dtype != torch.int32 or not filt.is_contiguous():
+        raise TypeError("projected_ranks: filt must be contiguous int32")
+    buf = torch.zeros(b + 2, dtype=torch.int32, device=dev)
+    out, counters = buf[:b], buf[b:]
+    if b == 0 or e == 0:
+        return out
+    if filt.shape[1] == 0:
+        filt = torch.full((b, 1), -1, dtype=torch.int32, device=dev)
+    ids = [x.to(device=dev, dtype=torch.int32).contiguous() for x in (fixed, gold, r, order,
+                                                                      offsets)]
+    scratch = torch.empty(b * PROJECTED_SCRATCH_PER_ROW, dtype=torch.float32, device=dev)
+    fn, cdll = _entry(PROJECTED_LIB, "triple_score_projected_ranks")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ent.data_ptr(), proj.data_ptr(), rel.data_ptr(), ids[0].data_ptr(),
+                ids[1].data_ptr(), ids[2].data_ptr(), filt.data_ptr(), ids[3].data_ptr(),
+                ids[4].data_ptr(), scratch.data_ptr(), counters.data_ptr(), out.data_ptr(),
+                b, e, d, filt.shape[1], 0 if side == "tail" else 1, dev.index, stream)
+    _check_rc(rc, cdll, "projected_ranks")
+    LAUNCHES["projected_ranks"] += 1
+    return out

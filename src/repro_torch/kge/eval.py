@@ -14,8 +14,10 @@ queries are decomposed into (query vector, entity table, mode) through
 ``lp_query_*``, and per-query filtered rank counts come from
 ``kernels.triple_score.fused_ranks`` — the CUDA kernel on a CUDA device, the
 plain streamed version on the CPU — so the (B, E) score matrix never
-materializes. Families without a decomposition stream ``score_triples``
-one entity block at a time.
+materializes. TransR's rows (L1) are grouped by relation and ranked by
+``kernels.triple_score.projected_ranks``, which projects the entity table
+per group inside the kernel. Other families without a decomposition stream
+``score_triples`` one entity block at a time.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.triple_score import fused_ranks
+from repro_torch.kernels.triple_score import fused_ranks, projected_ranks
 from repro_torch.kernels.triple_score.ops import exclusion_mask
 from repro_torch.kge.data import corrupt_triples
 from repro_torch.kge.models import (
@@ -32,6 +34,7 @@ from repro_torch.kge.models import (
     lp_gold_scores,
     lp_query_heads,
     lp_query_tails,
+    by_relation_group,
     score_all_heads,
     score_all_tails,
     score_triples,
@@ -174,10 +177,16 @@ def generic_counts_graph(params, model: KGEModel, fixed_a, fixed_b, gold, filt, 
 
 
 def side_counts_graph(params, model: KGEModel, h, r, t, filt, *, side: str,
-                      block_e: int = 512) -> torch.Tensor:
+                      block_e: int = 512, groups=None) -> torch.Tensor:
     """Filtered rank counts for one corruption side: device tensors in,
     device tensor out, no host sync. The fused-rank kernel on a CUDA
-    device; ``block_e`` sizes the plain and generic blocks."""
+    device, the projected-rank kernel for TransR (``groups``, the batch's
+    ``relation_groups(r)``, where the caller has them); ``block_e`` sizes
+    the plain and generic blocks."""
+    if by_relation_group(model):
+        fixed, gold = (h, t) if side == "tail" else (t, h)
+        return projected_ranks(params["ent"], params["proj"], params["rel"], fixed, gold, r,
+                               filt, side=side, groups=groups, block_e=block_e)
     qd = (
         lp_query_tails(params, model, h, r)
         if side == "tail"
@@ -208,12 +217,12 @@ def streaming_side_counts(params, model: KGEModel, chunk: np.ndarray,
 
 
 def side_counts_dispatch(params, model: KGEModel, h, r, t, filt, *, side: str,
-                         block_e: int = 512) -> torch.Tensor:
+                         block_e: int = 512, groups=None) -> torch.Tensor:
     """One asynchronous dispatch of the side-count engine — device tensors
     in, device tensor out, no host sync: the serving tier's batch call. On
     a CUDA device the caller records an event after it and polls it."""
     return side_counts_graph(params, model, h, r, t, filt, side=side,
-                             block_e=block_e)
+                             block_e=block_e, groups=groups)
 
 
 def build_score_inputs(kg, *, split: str = "test", max_test: int = 2000,

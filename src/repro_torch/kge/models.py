@@ -19,6 +19,10 @@ from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.triple_score.ops import sqrt_rn
 
 MODEL_FAMILIES = ("transe", "transh", "transr", "transd", "distmult", "complex", "rotate")
+#: families whose link prediction projects the entity table through one
+#: d x d matrix per relation (``params["proj"]``): their queries are served
+#: relation group by relation group
+PROJECTED_FAMILIES = ("transr",)
 
 Params = Dict[str, torch.Tensor]
 
@@ -31,6 +35,14 @@ class KGEModel:
     dim: int
     margin: float = 4.0
     norm_ord: int = 1  # L1 per OpenKE default for TransE-family
+
+
+def by_relation_group(m: KGEModel) -> bool:
+    """Whether link prediction goes relation group by relation group: TransR
+    under L1, whose filtered ranks the projected-rank kernel
+    (``kernels.triple_score.projected_ranks``) counts and whose top-k
+    projects the entity table once a group. Other norms index-expand."""
+    return m.family in PROJECTED_FAMILIES and m.norm_ord == 1
 
 
 def _generator(seed_or_gen: Union[int, torch.Generator], device: torch.device
@@ -165,9 +177,10 @@ def score_triples(params: Params, m: KGEModel, h, r, t, *,
 # vector against a query-independent entity table — −‖q − ent[e]‖ (l1/l2),
 # q · ent[e] (dot), or the per-component complex modulus distance over
 # [re | im] halves (cl1, RotatE). That is the contract of the triple_score
-# kernels; TransH/R/D project the entity table per relation and fall back to
-# index expansion. ComplEx ranks against the (E, 2d) table [ent | ent_im];
-# RotatE ranks heads with the inverse rotation t∘r̄.
+# kernels. TransR projects the entity table through one matrix per relation
+# and ranks relation group by relation group (``PROJECTED_FAMILIES``);
+# TransH/D fall back to index expansion. ComplEx ranks against the (E, 2d)
+# table [ent | ent_im]; RotatE ranks heads with the inverse rotation t∘r̄.
 # ---------------------------------------------------------------------------
 def _complex_table(params: Params) -> torch.Tensor:
     return torch.cat([params["ent"], params["ent_im"]], dim=1)

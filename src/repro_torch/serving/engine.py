@@ -13,7 +13,8 @@ for families without a decomposition and for k above the kernel's cap, it
 scores the entity table one chunk at a time and folds each chunk into a
 carried top-k (``topk_scan``), so the (B, E) score matrix never exists at
 once. Both order ties alike: to the lower entity id, with ``(-inf, -1)`` in
-places no unfiltered entity fills.
+places no unfiltered entity fills. TransR's top-k projects the entity table
+once per relation group of the batch and takes the decomposed path over it.
 """
 from __future__ import annotations
 
@@ -25,10 +26,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.kernels.triple_score import pairwise_scores, pairwise_topk, pairwise_topk_cap
+from repro_torch.kernels.triple_score import (
+    pairwise_scores,
+    pairwise_topk,
+    pairwise_topk_cap,
+    relation_groups,
+)
 from repro_torch.kernels.triple_score.ops import topk_scan
 from repro_torch.kge.eval import streaming_side_counts
-from repro_torch.kge.models import lp_query_tails, score_triples
+from repro_torch.kge.models import by_relation_group, lp_query_tails, score_triples
 from repro_torch.serving.tables import FilterPack, TableVersion, check_id_range
 
 #: top-k entity chunk on a CUDA device: the kernel's own tiles bound its
@@ -138,8 +144,9 @@ def _streaming_topk_decomposed(q, table, filt, *, k: int, block_e: int, mode: st
 
 
 def _streaming_topk_generic(params, model, h, r, filt, *, k: int, block_e: int):
-    """Top-k for families without a decomposition: each block scored by
-    index expansion through ``score_triples``."""
+    """Top-k for the other families without a decomposition (TransH,
+    TransD): each block scored by index expansion through
+    ``score_triples``."""
     b = h.shape[0]
 
     def score_block(c0, c1):
@@ -154,9 +161,37 @@ def _streaming_topk_generic(params, model, h, r, filt, *, k: int, block_e: int):
                      device=h.device)
 
 
+def _streaming_topk_projected(params, model, h, r, filt, *, k: int, block_e: int):
+    """Top-k for TransR under L1: each relation group's entity table
+    projected once (``ent @ M_r``, one (E, d) table at a time) and the
+    group's queries ``h·M_r + r`` taken through the decomposed path over it.
+    Reading the group offsets waits for the device."""
+    b = h.shape[0]
+    kk = min(k, model.num_entities)
+    vals = torch.full((b, kk), float("-inf"), dtype=torch.float32, device=h.device)
+    ids = torch.full((b, kk), -1, dtype=torch.int32, device=h.device)
+    ent, proj, rel = params["ent"], params["proj"], params["rel"]
+    order, offsets = relation_groups(r)
+    offs = offsets.tolist()
+    for p0, p1 in zip(offs[:-1], offs[1:]):
+        if p0 >= p1:
+            break
+        rows = order[p0:p1].long()
+        rid = r[rows[:1]].long()
+        m = proj[rid][0]
+        q = ent[h[rows].long()] @ m + rel[rid]
+        v, i = _streaming_topk_decomposed(q, ent @ m, filt[rows].contiguous(), k=k,
+                                          block_e=block_e, mode="l1")
+        vals[rows], ids[rows] = v, i
+    return vals, ids
+
+
 def topk_tails_dispatch(params, model, h, r, filt, *, k: int, block_e: int):
     """One asynchronous top-k dispatch (device tensors in and out): the
-    decomposed path where the family has one, else the generic path."""
+    decomposed path where the family has one, TransR's (L1) per relation
+    group, else the generic path."""
+    if by_relation_group(model):
+        return _streaming_topk_projected(params, model, h, r, filt, k=k, block_e=block_e)
     qd = lp_query_tails(params, model, h, r)
     if qd is not None:
         q, table, mode = qd

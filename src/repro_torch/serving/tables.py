@@ -107,7 +107,8 @@ def check_id_range(name: str, ids, limit: int) -> np.ndarray:
 
 
 def _bad_row_mask(params, keys, n: int) -> np.ndarray:
-    """(n,) bool: rows with any NaN/Inf in any of the named tables. The
+    """(n,) bool: rows with any NaN/Inf in any of the named tables (a row of
+    a 3-D table such as TransR's ``proj`` is its whole matrix). The
     reduction runs where the tables sit; only the boolean vector comes to
     the host. Rows past ``n`` (virtual-entity extensions) are ignored."""
     bad = np.zeros(n, np.bool_)
@@ -115,7 +116,7 @@ def _bad_row_mask(params, keys, n: int) -> np.ndarray:
         tab = params.get(k)
         if tab is None:
             continue
-        m = (~torch.isfinite(tab).all(dim=-1)).cpu().numpy()
+        m = (~torch.isfinite(tab.reshape(tab.shape[0], -1)).all(dim=1)).cpu().numpy()
         bad[: m.shape[0]] |= m[:n]
     return bad
 
@@ -134,7 +135,7 @@ class TableVersion:
         self.owner = owner
         self.ent_bad = _bad_row_mask(self.params, ("ent", "ent_im"),
                                      model.num_entities)
-        self.rel_bad = _bad_row_mask(self.params, ("rel", "rel_im"),
+        self.rel_bad = _bad_row_mask(self.params, ("rel", "rel_im", "proj"),
                                      model.num_relations)
         #: per-device copies, filled by ``on()``
         self._ondev: Dict[torch.device, Dict[str, torch.Tensor]] = {}

@@ -51,6 +51,15 @@ batch is done too. A request's four phases —
 start to finish) — are differences of its own stamps, so they sum to its
 ``latency``.
 
+**Relation groups** — for a family that projects the entity table per
+relation (TransR under L1), ``_dispatch`` sorts the rows of a padded rank
+batch by relation on the host (a stable argsort) and ships the order and
+the group offsets with the batch, so the projected-rank kernel needs no
+device sync to find them; a ``tier.group`` span (child of
+``tier.assemble``) times it, and ``stats["relation_groups"]`` sums the
+batches' distinct relations. Padded rows repeat row 0 and so join its
+group. Other families skip it.
+
 ``serve_impl="direct"`` (``REPRO_SERVE_IMPL``) disables coalescing.
 ``REPRO_SERVE_REPLICAS`` sizes the replica ring; ``serve_faults=`` /
 ``REPRO_SERVE_FAULTS`` arm the seeded chaos layer (off by default).
@@ -73,7 +82,9 @@ from repro_torch.kernels.dispatch import (
     resolve_serve_impl,
     resolve_serve_replicas,
 )
+from repro_torch.kernels.triple_score import relation_groups_host
 from repro_torch.kge.eval import side_counts_dispatch
+from repro_torch.kge.models import by_relation_group
 from repro_torch.serving.engine import topk_tails_dispatch
 from repro_torch.serving.tables import FilterPack, TableVersion, check_id_range
 from repro_torch.utils import tracing
@@ -250,7 +261,7 @@ class KGEServingTier:
             "rejected": 0, "retried": 0, "hedged": 0,
             "breaker_open": 0, "breaker_close": 0,
             "batches": 0, "published": 0, "publish_errors": 0,
-            "padded_rows": 0, "warmed": 0,
+            "padded_rows": 0, "warmed": 0, "relation_groups": 0,
         }
         #: bucket specs run once at publish: ("rank", rows) or
         #: ("topk", rows, k), rounded to the pow-2 buckets the loop pads to
@@ -270,6 +281,8 @@ class KGEServingTier:
         self._seq = 0
         self._publish_lock = threading.Lock()
         self._active: Optional[TableVersion] = None
+        #: whether rank batches carry their rows' relation groups
+        self.grouped = by_relation_group(model)
         self.publish(params, version=0)
         self.stats["published"] = 0  # the constructor's own staging isn't a flip
 
@@ -324,6 +337,8 @@ class KGEServingTier:
                         [z[:, None].astype(np.int32), self.filters.rows_for(z, z)], axis=1
                     )
                     host_in = (z, z, z, filt)
+                    if self.grouped:
+                        host_in = self._with_groups(host_in)
                 else:
                     host_in = (z, z, self.filters.rows_for(z, z))
                 out = self._run(kind, host_in, tv.on(rep.device), rep.device, kb)
@@ -558,12 +573,19 @@ class KGEServingTier:
         for q in reqs:
             segs.append((q, off, len(q.h)))
             off += len(q.h)
+        grouped_at = None
         if kind == "rank":
             t = np.concatenate([q.t for q in reqs])
             filt = np.concatenate(
                 [t[:, None].astype(np.int32), self.filters.rows_for(h, r)], axis=1,
             )
             host_in = tuple(self._pad([h, r, t, filt], nq))
+            if self.grouped:
+                g0 = time.perf_counter()
+                host_in = self._with_groups(host_in)
+                ngroups = int(np.count_nonzero(host_in[4][:-1] < len(host_in[0])))
+                self.stats["relation_groups"] += ngroups
+                grouped_at = (g0, time.perf_counter(), ngroups)
             kb = 0
         else:
             kb = min(_pow2_at_least(reqs[0].k), self.model.num_entities)
@@ -571,18 +593,35 @@ class KGEServingTier:
             host_in = tuple(self._pad([h, r, filt], nq))
         self.stats["batches"] += 1
         if assemble_at is not None:
-            tracing.record("tier.assemble", assemble_at, time.perf_counter(), seq=self._seq,
-                           rows=nq, requests=len(reqs))
+            sp = tracing.record("tier.assemble", assemble_at, time.perf_counter(),
+                                seq=self._seq, rows=nq, requests=len(reqs))
+            if grouped_at is not None:
+                tracing.record("tier.group", grouped_at[0], grouped_at[1], parent=sp,
+                               seq=self._seq, rows=len(host_in[0]), groups=grouped_at[2])
         self._launch(kind, host_in, segs, nq, tv, kb, coalesced_at=coalesced_at)
         return nq
+
+    @staticmethod
+    def _with_groups(host_in: Tuple) -> Tuple:
+        """A padded rank batch ``(h, r, t, filt)`` with its rows' relation
+        groups, sorted on the host: ``(h, r, t, order, offsets, filt)``."""
+        h, r, t, filt = host_in
+        return (h, r, t, *relation_groups_host(r), filt)
 
     def _run(self, kind: str, host_in: Tuple, ptab, device: torch.device,
              kb: int) -> Tuple:
         """Launch one padded batch on ``device``: the rank counts, or the
-        (vals, ids) top-k pair. Asynchronous on a CUDA device."""
+        (vals, ids) top-k pair. Asynchronous on a CUDA device. A rank batch
+        is ``(h, r, t, filt)``, or ``(h, r, t, order, offsets, filt)`` where
+        the family ranks by relation group."""
         dev_in = [torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
                   for a in host_in]
         if kind == "rank":
+            if self.grouped:
+                dh, dr, dt, order, offsets, df = dev_in
+                return (side_counts_dispatch(ptab, self.model, dh, dr, dt, df,
+                                             side="tail", block_e=self.block_e,
+                                             groups=(order, offsets)),)
             dh, dr, dt, df = dev_in
             return (side_counts_dispatch(ptab, self.model, dh, dr, dt, df,
                                          side="tail", block_e=self.block_e),)

@@ -155,17 +155,20 @@ def span(name: str, **attrs):
     return _Open(_live(), name, attrs)
 
 
-def record(name: str, start: float, end: float, **attrs) -> None:
+def record(name: str, start: float, end: float, parent=None, **attrs):
     """Record a span whose ``start`` and ``end`` (``time.perf_counter``
-    seconds) the caller already took; its parent is the span open now."""
+    seconds) the caller already took; its parent is ``parent`` (a span that
+    ``record`` returned) or else the span open now. Returns the span, or
+    None outside a session."""
     if not _profiler._is_profiler_enabled:
-        return
+        return None
     s = _live()
     sp = _Open(s, name, attrs)
     stack = s.stack()
-    sp.parent = stack[-1] if stack else None
+    sp.parent = parent if parent is not None else (stack[-1] if stack else None)
     sp.start, sp.end = start, end
     s.buf.append(sp)
+    return sp
 
 
 def spans() -> List[Span]:

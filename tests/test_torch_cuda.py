@@ -32,6 +32,9 @@ rtol) at fp32 and within one bf16 ulp (rtol 2**-7, atol 1e-5) at bf16; where
 the scores are ~50-60 (qk-norm off), fp32 rounding alone moves the output by
 more than 1e-5, so there the fp32 kernel is held within twice the plain
 version's own distance from a float64 truth. The
+projected-rank kernel (TransR) counts as its plain version does up to
+near-ties (1e-5·(1+|gold|) of a float64 score), one launch a tier batch,
+with no projected (E, d) table allocated. The
 SSD chunk kernel agrees with its plain version within 1e-5 of the largest
 output magnitude (both sum ``cum`` in the same order), the whole SSD with the plain chunk loop within 1e-3 of it.
 A reduced LM card served on the card gives the CPU engine's tokens up to
@@ -50,6 +53,9 @@ from repro_torch.kernels.triple_score import (
     pairwise_topk,
     pairwise_topk_cap,
     pairwise_topk_plain,
+    projected_ranks,
+    projected_ranks_plain,
+    relation_groups,
 )
 from repro_torch.kernels.triple_score.ops import topk_scan
 from repro_torch.kernels.sparse_update import LAUNCHES as STEP_LAUNCHES
@@ -371,6 +377,131 @@ def test_pairwise_topk_counts_one_launch_per_tier_batch(cuda_dev):
     with pytest.raises(ValueError):
         pairwise_topk(q, tier._active.params["ent"], torch.full((2, 1), -1, dtype=torch.int32,
                                                                  device=cuda_dev), k=cap + 1)
+
+
+def _transr_case(dev, e, r, d, b, single, seed):
+    """TransR tables (identity plus 0.05 normal projections) and ``b`` rows
+    over uniform relations or one relation, with messy filters."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bound = 6 / d ** 0.5
+    ent = (torch.rand(e, d, generator=g, device=dev) * 2 - 1) * bound
+    rel = (torch.rand(r, d, generator=g, device=dev) * 2 - 1) * bound
+    proj = torch.eye(d, device=dev)[None].repeat(r, 1, 1) + 0.05 * torch.randn(
+        r, d, d, generator=g, device=dev)
+    fixed = torch.randint(0, e, (b,), generator=g, device=dev)
+    gold = torch.randint(0, e, (b,), generator=g, device=dev)
+    rr = (torch.full((b,), 3, device=dev) if single
+          else torch.randint(0, r, (b,), generator=g, device=dev))
+    filt = torch.randint(-1, e, (b, 5), generator=g, device=dev, dtype=torch.int32)
+    filt[:, 0] = gold.int()
+    filt[:, 3] = filt[:, 1]
+    return ent, proj, rel, fixed, gold, rr, filt
+
+
+def _transr_scores(ent, proj, rel, fixed, gold, r, side):
+    """(B, E) float64 scores of every entity in each row's open slot, and the
+    gold scores."""
+    sign = 1.0 if side == "tail" else -1.0
+    e64, out = ent.double(), torch.empty(len(fixed), ent.shape[0], dtype=torch.float64,
+                                          device=ent.device)
+    for rid in r.unique().tolist():
+        rows = (r == rid).nonzero().squeeze(1)
+        m = proj[rid].double()
+        q = e64[fixed[rows]] @ m + sign * rel[rid].double()
+        tab = e64 @ m
+        for c in range(0, len(rows), 64):
+            out[rows[c:c + 64]] = -(q[c:c + 64, None] - tab[None]).abs().sum(-1)
+    return out, out[torch.arange(len(fixed), device=ent.device), gold]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["tail", "head"])
+@pytest.mark.parametrize("single", [False, True], ids=["uniform", "one_relation"])
+@pytest.mark.parametrize("b", [1, 7, 64, 2048])
+def test_projected_ranks_match_plain(cuda_dev, b, single, side):
+    ent, proj, rel, fixed, gold, r, filt = _transr_case(cuda_dev, 3001, 64, 100, b, single, b)
+    before = LAUNCHES["projected_ranks"]
+    got = projected_ranks(ent, proj, rel, fixed, gold, r, filt, side=side)
+    assert LAUNCHES["projected_ranks"] == before + 1
+    order, offsets = relation_groups(r)
+    want = projected_ranks_plain(ent, proj, rel, fixed, gold, r, filt, order, offsets, side)
+    scores, g = _transr_scores(ent, proj, rel, fixed, gold, r, side)
+    assert _near_tie_ok(got.cpu(), want.cpu(), scores.cpu(), g.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [37, 64])
+def test_projected_ranks_at_other_widths(cuda_dev, d):
+    ent, proj, rel, fixed, gold, r, filt = _transr_case(cuda_dev, 2000, 9, d, 50, False, d)
+    got = projected_ranks(ent, proj, rel, fixed, gold, r, filt)
+    order, offsets = relation_groups(r)
+    want = projected_ranks_plain(ent, proj, rel, fixed, gold, r, filt, order, offsets, "tail")
+    scores, g = _transr_scores(ent, proj, rel, fixed, gold, r, "tail")
+    assert _near_tie_ok(got.cpu(), want.cpu(), scores.cpu(), g.cpu())
+
+
+@pytest.mark.cuda
+def test_projected_ranks_one_launch_a_tier_batch_and_no_projected_table(cuda_dev):
+    """A TransR rank run of the tier: one projected-rank launch per batch and
+    no fused-rank one; a 2,048-row launch over 200,000 entities allocates far
+    less than one projected (E, d) table (the entity table's bytes)."""
+    e, r, d = 4000, 50, 100
+    ent, proj, rel, *_ = _transr_case(cuda_dev, e, r, d, 1, False, 1)
+    rng = np.random.default_rng(4)
+    known = np.stack([rng.integers(0, e, 3000), rng.integers(0, r, 3000),
+                      rng.integers(0, e, 3000)], 1)
+    tier = KGEServingTier({"ent": ent, "rel": rel, "proj": proj}, KGEModel("transr", e, r, d),
+                          known, device=cuda_dev, max_batch=64)
+    batches, before = tier.stats["batches"], dict(LAUNCHES)
+    for i in range(30):
+        q = known[rng.integers(0, len(known), 1 + i % 37)]
+        tier.submit_rank(q[:, 0], q[:, 1], q[:, 2])
+    tier.run_until_drained()
+    assert LAUNCHES["projected_ranks"] - before["projected_ranks"] == \
+        tier.stats["batches"] - batches > 0
+    assert LAUNCHES["fused_ranks"] == before["fused_ranks"]
+    ent, proj, rel, fixed, gold, r, filt = _transr_case(cuda_dev, 200_000, 1000, d, 2048,
+                                                        False, 5)
+    groups = relation_groups(r)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    projected_ranks(ent, proj, rel, fixed, gold, r, filt, groups=groups)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < ent.numel() * 4 // 8
+
+
+@pytest.mark.cuda
+def test_projected_ranks_replay_from_a_captured_graph(cuda_dev):
+    """The tick engine captures its Hit@10 scoring in CUDA graphs: the
+    cooperative launch captured and replayed gives the eager counts."""
+    ent, proj, rel, fixed, gold, r, filt = _transr_case(cuda_dev, 3000, 20, 100, 64, False, 9)
+    eager = projected_ranks(ent, proj, rel, fixed, gold, r, filt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        projected_ranks(ent, proj, rel, fixed, gold, r, filt)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = projected_ranks(ent, proj, rel, fixed, gold, r, filt)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+def test_projected_ranks_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev):
+    ent, proj, rel, fixed, gold, r, filt = _transr_case(cuda_dev, 50, 3, 112, 4, False, 0)
+    with pytest.raises(ValueError):
+        projected_ranks(ent, proj, rel, fixed, gold, r, filt)  # d above 104
+    ent, proj, rel, fixed, gold, r, filt = _transr_case(cuda_dev, 50, 3, 16, 4, False, 0)
+    with pytest.raises(ValueError):
+        projected_ranks(ent, proj, rel, fixed, gold, r, filt, side="both")
+    with pytest.raises(TypeError):
+        projected_ranks(ent, proj, rel, fixed, gold, r, filt.long())
+    with pytest.raises(ValueError):
+        projected_ranks(ent, proj[:, :8], rel, fixed, gold, r, filt)
 
 
 @pytest.mark.cuda

@@ -24,7 +24,7 @@ from repro_torch.kge import models as tm
 
 E, R = 60, 5
 EXACT = [("transe", 1, 32), ("transe", 2, 32), ("distmult", 1, 32), ("complex", 1, 16)]
-NEAR = [("rotate", 1, 16), ("transh", 1, 12), ("transd", 2, 12)]
+NEAR = [("rotate", 1, 16), ("transh", 1, 12), ("transr", 1, 12), ("transd", 2, 12)]
 
 
 @pytest.fixture(scope="module")

@@ -294,7 +294,10 @@ def test_tier_mixed_traffic_bit_equal_to_ranker_and_jax_tier(known, family, norm
                      jtier.submit_topk(q[:, 0], q[:, 1], k=k)))
     tier.run_until_drained()
     jtier.run_until_drained()
-    assert tier.stats == jtier.stats
+    # the port's tier counts one more thing, the relation groups of the
+    # families that project per relation (none here)
+    assert {k: v for k, v in tier.stats.items() if k != "relation_groups"} == jtier.stats
+    assert tier.stats["relation_groups"] == 0
     assert tier.stats["batches"] < len(reqs) and tier.stats["failed"] == 0
     for kind, q, req, jreq in reqs:
         assert req.state == jreq.state == "served" and req.version == 0
